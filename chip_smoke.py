@@ -1,0 +1,430 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`siftgpu_tpu_torch`) on one GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path — `extract_features` on four 480x640 frames
+related by known shifts (K = 2048), then `match_descriptors_batch` on the
+three consecutive pairs — and checks it:
+
+  1. device: a CUDA card is required (exit 1 otherwise); prints
+     `nvidia-smi --query-gpu=name,power.limit` ;
+  2. build: compiles every kernel of `siftgpu_tpu_torch/csrc` with nvcc
+     (into `siftgpu_tpu_torch/_build/`) and prints the build times;
+  3. parity: each kernel against its plain PyTorch version on the card, on
+     inputs taken from a real main-path run, at the main path's shapes, then
+     at edge shapes (odd sizes, a flat image, masks, exact ties);
+  4. main path: launch counters reset to 0, one extract + match, every
+     kernel must have launched; >= 90% known-shift inliers per pair; frame 0
+     on the CPU must pair >= 99% of its keypoints with the card's;
+  5. times (CUDA events): extract and match per batch, and each kernel
+     against its plain version at the main path's shapes.
+
+Any failed check raises.  The last three lines are the card's name and
+power limit, one JSON object with a record per kernel, and
+`{"ok": true, "device": {...}}`.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+H, W, B, K = 480, 640, 4, 2048
+SHIFT = (3.0, -2.0)        # frame i is frame 0 shifted by i * SHIFT (x, y)
+REPLACES = {
+    "detect_scores": "siftgpu_tpu/ops/detect_scores.py:320",
+    "grad_stencil": "siftgpu_tpu/ops/grad_stencil.py:154",
+    "orient_sample": "siftgpu_tpu/ops/kp_engine.py:937",
+    "match_best2": "siftgpu_tpu/ops/match_kernel.py:230",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return out[0]
+
+
+def make_frames(h=H, w=W, b=B):
+    from siftgpu_tpu_torch.oracle import fixtures
+
+    base = fixtures.random_texture(h, w, seed=0, smooth=3)
+    frames = [base] + [
+        fixtures.warp_affine(base, np.eye(2), np.array([SHIFT[0] * i, SHIFT[1] * i]))
+        for i in range(1, b)
+    ]
+    return np.stack(frames).astype(np.float32)
+
+
+def inlier_rate(feats, res, p: int) -> float:
+    """Share of pair p's matches consistent with the known shift (< 1 px)."""
+    c = int(res.count[p])
+    pr = res.pairs[p, :c].cpu().numpy()
+    x0, y0 = feats.x[p].cpu().numpy(), feats.y[p].cpu().numpy()
+    x1, y1 = feats.x[p + 1].cpu().numpy(), feats.y[p + 1].cpu().numpy()
+    err = np.hypot(x1[pr[:, 1]] - (x0[pr[:, 0]] + SHIFT[0]),
+                   y1[pr[:, 1]] - (y0[pr[:, 0]] + SHIFT[1]))
+    return float((err < 1.0).mean()) if c else 0.0
+
+
+def paired_share(xa, ya, xb, yb, tol=0.5) -> float:
+    """Share of keypoints of set a with a distinct partner in b within tol."""
+    used = np.zeros(len(xb), bool)
+    hits = 0
+    for i in range(len(xa)):
+        d2 = (xb - xa[i]) ** 2 + (yb - ya[i]) ** 2
+        d2[used] = np.inf
+        j = int(np.argmin(d2)) if len(xb) else -1
+        if j >= 0 and d2[j] < tol * tol:
+            used[j] = True
+            hits += 1
+    return hits / max(len(xa), 1)
+
+
+def time_ms(fn, sync, iters: int) -> float:
+    """Mean ms per call of fn over `iters` calls, timed with CUDA events
+    after one warm-up call."""
+    import torch
+
+    fn()
+    sync()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    sync()
+    return t0.elapsed_time(t1) / iters
+
+
+class Parity:
+    """Kernel-vs-plain comparisons on the card."""
+
+    def __init__(self, cfg, sync):
+        self.cfg = cfg
+        self.sync = sync
+        self.err = {}       # kernel name -> max abs error over its comparisons
+        self.calls = {}     # kernel name -> list of (kernel fn, plain fn)
+
+    def note(self, name, err, kern, plain, timed=True):
+        """Record a comparison; `timed` ones are main-path calls, timed in phase 5."""
+        self.err[name] = max(self.err.get(name, 0.0), float(err))
+        if timed:
+            self.calls.setdefault(name, []).append((kern, plain))
+
+    def detect(self, dog):
+        import torch
+
+        from siftgpu_tpu_torch.ops import detect_scores as ds
+
+        got = ds.detect_scores(dog, self.cfg)
+        self.sync()
+        ref = ds.detect_scores_plain(dog, self.cfg)
+        for k in (0, 1):  # score planes: bit-identical
+            if not torch_equal_bits(got[k], ref[k]):
+                raise AssertionError(f"detect_scores: score plane {k} differs from the plain version")
+        err = 0.0
+        for g, r in zip(got[2:], ref[2:]):  # records: <= 2 ulp or 1e-6
+            ulp = (g.view(torch.int32).long() - r.view(torch.int32).long()).abs()
+            ok = (ulp <= 2) | ((g - r).abs() <= 1e-6)
+            if not bool(ok.all()):
+                raise AssertionError(f"detect_scores: record off by {int(ulp.max())} ulp")
+            err = max(err, float((g - r).abs().max()))
+        self.note("detect_scores", err, lambda: ds.detect_scores(dog, self.cfg),
+                  lambda: ds.detect_scores_plain(dog, self.cfg))
+
+    def grad(self, gauss):
+        from siftgpu_tpu_torch.ops import grad_stencil as gs
+
+        win = 2 * self.cfg.orient_window_radius + 1
+        S = self.cfg.dog_levels
+        got = gs.grad_stencil(gauss, S, win, win)
+        self.sync()
+        ref = gs.grad_stencil_plain(gauss, S, win, win)
+        for g, r in zip(got, ref):
+            if not torch_equal_bits(g, r):
+                raise AssertionError("grad_stencil: differs from the plain version")
+        self.note("grad_stencil", 0.0, lambda: gs.grad_stencil(gauss, S, win, win),
+                  lambda: gs.grad_stencil_plain(gauss, S, win, win))
+
+    def orient(self, grads, kp):
+        import torch
+
+        from siftgpu_tpu_torch.frontend import describe
+        from siftgpu_tpu_torch.ops import kp_engine as ke
+
+        cfg = self.cfg
+        Bk, Kk = kp.y.shape
+        S, Hp, Wp = grads.gx.shape[1:]
+        b_idx = torch.arange(Bk, dtype=torch.int32, device=kp.y.device)[:, None]
+        args = (
+            grads.gx.reshape(Bk * S, Hp, Wp), grads.gy.reshape(Bk * S, Hp, Wp),
+            (b_idx * S + (kp.grad_level - 1)).reshape(-1).contiguous(),
+            kp.y.reshape(-1).contiguous(), kp.x.reshape(-1).contiguous(),
+            kp.sigma.reshape(-1).contiguous(), cfg, kp.mask.reshape(-1).contiguous(),
+            grads.h, grads.w,
+        )
+        th_k, hp_k, sx_k, sy_k = ke.orient_sample(*args)
+        self.sync()
+        th_p, hp_p, sx_p, sy_p = ke.orient_sample_plain(*args)
+        m = kp.mask.reshape(-1)[:, None]
+        valid_k = hp_k | (m & (torch.arange(cfg.max_orientations, device=m.device) == 0))
+        valid_p = hp_p | (m & (torch.arange(cfg.max_orientations, device=m.device) == 0))
+        agree = float((valid_k == valid_p).float().mean())
+        both = valid_k & valid_p
+        dth = (th_k - th_p).abs()[both]
+        dth = torch.minimum(dth, 2 * np.pi - dth)
+        if agree <= 0.99:
+            raise AssertionError(f"orient_sample: validity agreement {agree}")
+        dth = torch.cat([dth, dth.new_zeros(1)])             # empty octaves
+        q98, dmax = float(torch.quantile(dth, 0.98)), float(dth.max())
+        if q98 >= 1e-2 or dmax >= 0.2:
+            raise AssertionError(f"orient_sample: theta q98 {q98}, max {dmax}")
+        G2 = cfg.descriptor_grid ** 2
+        n = cfg.max_orientations
+        close = both & ((th_k - th_p).abs() <= 1e-6)          # [N, n]
+        rows = close[:, :, None].expand(-1, -1, G2).reshape(close.shape[0], n * G2)
+        err = float(torch.maximum((sx_k - sx_p).abs(), (sy_k - sy_p).abs())[rows].max()) \
+            if bool(rows.any()) else 0.0
+        if err > 1e-5:
+            raise AssertionError(f"orient_sample: samples differ by {err}")
+        dk = describe.bin_descriptors(sx_k.view(1, -1, G2), sy_k.view(1, -1, G2),
+                                      th_k.view(1, -1), cfg)[0]
+        dp = describe.bin_descriptors(sx_p.view(1, -1, G2), sy_p.view(1, -1, G2),
+                                      th_p.view(1, -1), cfg)[0]
+        dd = (dk.int() - dp.int()).abs()[close.reshape(-1)]
+        if dd.numel() and int(dd.max()) > 4:
+            raise AssertionError(f"orient_sample: descriptors differ by {int(dd.max())} steps")
+        log(f"  orient_sample: {int(m.sum())} kp, validity agreement {agree:.5f}, "
+            f"theta q98 {q98:.3g} max {dmax:.3g}, sample err {err:.3g}, "
+            f"desc max step {int(dd.max()) if dd.numel() else 0}")
+        self.note("orient_sample", err, lambda: ke.orient_sample(*args),
+                  lambda: ke.orient_sample_plain(*args))
+
+    def match(self, d0, d1, m0, m1, label, timed=True):
+        from siftgpu_tpu_torch.ops import match_kernel as mk
+
+        rn0, rn1 = mk.recip_norms(d0), mk.recip_norms(d1)
+        got = mk.match_best2(d0, d1, rn0, rn1, m0, m1)
+        self.sync()
+        ref = mk.match_best2_plain(d0, d1, rn0, rn1, m0, m1)
+        for name, g, r in zip(("bsim", "ssim", "bestj", "col_best_i"), got, ref):
+            if not torch_equal_bits(g, r):
+                raise AssertionError(f"match_best2 ({label}): {name} differs from the plain version")
+        log(f"  match_best2 ({label}, {tuple(d0.shape)} x {tuple(d1.shape)}): identical")
+        self.note("match_best2", 0.0, lambda: mk.match_best2(d0, d1, rn0, rn1, m0, m1),
+                  lambda: mk.match_best2_plain(d0, d1, rn0, rn1, m0, m1), timed)
+
+
+def torch_equal_bits(a, b) -> bool:
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return bool((a.view(torch.int32) == b.view(torch.int32)).all())
+    if a.dtype == torch.bfloat16:
+        return bool((a.view(torch.int16) == b.view(torch.int16)).all())
+    return bool((a == b).all())
+
+
+def edge_cases(dev, sync):
+    """Kernel-vs-plain checks off the main path's shapes: odd image sizes,
+    keypoints at the borders, a flat image with no keypoints, set sizes that
+    are not multiples of the match kernel's tiles, masks, and exact
+    similarity ties across row blocks (the column atomicMax tie-break)."""
+    import torch
+
+    from siftgpu_tpu_torch import SiftConfig
+    from siftgpu_tpu_torch.frontend import detect, orient, pyramid
+    from siftgpu_tpu_torch.oracle import fixtures
+
+    for (h, w), flat in (((97, 131), False), ((64, 64), True)):
+        cfg = SiftConfig(height=h, width=w, max_keypoints=256)
+        imgs = np.full((2, h, w), 0.5, np.float32) if flat else np.stack(
+            [fixtures.random_texture(h, w, seed=s) for s in (1, 2)])
+        par = Parity(cfg, sync)
+        pyr = pyramid.build_pyramid(torch.from_numpy(imgs).to(dev), cfg)
+        for oc in pyr:
+            par.detect(oc.dog)
+            par.grad(oc.gauss)
+        for oc, kp in zip(pyr, detect.detect_pyramid(pyr, cfg)):
+            if flat and bool(kp.mask.any()):
+                raise AssertionError("flat image: keypoints detected")
+            if flat:  # make every (degenerate, border) slot live: empty histograms
+                kp = kp._replace(mask=torch.ones_like(kp.mask))
+            par.orient(orient.gradient_stack(oc.gauss, cfg), kp)
+        log(f"  edge case {h}x{w}{' flat' if flat else ''}: detect, grad, orient match the plain versions")
+
+    rng = np.random.default_rng(5)
+    d0 = rng.integers(0, 256, (2, 100, 128), dtype=np.uint8)
+    d1 = rng.integers(0, 256, (2, 333, 128), dtype=np.uint8)
+    d0[:, 40] = d0[:, 5]            # identical rows in different 32-row blocks
+    d0[:, 77] = d0[:, 5]
+    d1[:, 200] = d1[:, 100]         # identical columns in different tiles
+    d1[:, 3] = d0[:, 5]             # ...and an exact best for rows 5, 40, 77
+    d1[:, 300] = d0[:, 5]
+    m0 = rng.random((2, 100)) > 0.1
+    m1 = rng.random((2, 333)) > 0.1
+    m0[:, [5, 40, 77]] = True
+    m1[:, [3, 300]] = True
+    m0[1, :] = False                # pair 1: every row masked
+    t = lambda a: torch.from_numpy(a).to(dev)
+    Parity(SiftConfig(), sync).match(t(d0), t(d1), t(m0), t(m1), "edge: sizes, masks, ties")
+
+
+def run(device: str, h=H, w=W, b=B, k=K):
+    """The whole smoke run on `device` (a CUDA device on the chip; the CPU
+    only to rehearse the control flow, where both routes are plain)."""
+    import torch
+
+    from siftgpu_tpu_torch import (MatchConfig, SiftConfig, extract_features,
+                                   match_descriptors_batch)
+    from siftgpu_tpu_torch.frontend import detect, extract, orient, pyramid
+    from siftgpu_tpu_torch.ops import _build
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cfg = SiftConfig(height=h, width=w, max_keypoints=k)
+    mcfg = MatchConfig(max_sift=k, max_match=k)
+    frames = make_frames(h, w, b)
+    images = torch.from_numpy(frames).to(dev)
+
+    def main_path():
+        f = extract_features(images, cfg)
+        r = match_descriptors_batch(f.desc[:-1], f.desc[1:], f.mask[:-1], f.mask[1:], mcfg)
+        return f, r
+
+    # ---- 3. kernel vs plain at the main path's shapes ----
+    log("phase 3: kernels against their plain versions")
+    par = Parity(cfg, sync)
+    pyr = pyramid.build_pyramid(images, cfg)
+    for oc in pyr:
+        par.detect(oc.dog)
+        par.grad(oc.gauss)
+    log("  detect_scores: score planes bit-identical, records within 2 ulp "
+        f"(max abs {par.err['detect_scores']:.3g}) on {len(pyr)} octaves")
+    log(f"  grad_stencil: bit-identical on {len(pyr)} octaves")
+    kps = extract.prefilter_candidates(detect.detect_pyramid(pyr, cfg), cfg)
+    for oc, kp in zip(pyr, kps):
+        par.orient(orient.gradient_stack(oc.gauss, cfg), kp)
+    feats, _ = main_path()
+    sync()
+    par.match(feats.desc[:-1].contiguous(), feats.desc[1:].contiguous(),
+              feats.mask[:-1].contiguous(), feats.mask[1:].contiguous(), "main path")
+    g = torch.Generator().manual_seed(0)
+    rd = torch.randint(0, 256, (1, 2 * k, 128), generator=g, dtype=torch.uint8).to(dev)
+    ones = torch.ones((1, k), dtype=torch.bool, device=dev)
+    par.match(rd[:, :k].contiguous(), rd[:, k:].contiguous(), ones, ones, "random", timed=False)
+    edge_cases(dev, sync)
+
+    # ---- 4. the main path, counted ----
+    log("phase 4: main path")
+    for kern in _build.KERNELS.values():
+        kern.launches = 0
+    feats, res = main_path()
+    sync()
+    launches = {name: kern.launches for name, kern in _build.KERNELS.items()}
+    if dev.type == "cuda":
+        missing = [n for n, c in launches.items() if c == 0]
+        if missing:
+            raise AssertionError(f"main path did not launch {missing}")
+    counts = feats.count.cpu().tolist()
+    log(f"  keypoints per frame {counts}, matches per pair {res.count.cpu().tolist()}, "
+        f"launches {launches}")
+    for p in range(b - 1):
+        rate = inlier_rate(feats, res, p)
+        log(f"  pair {p}: inlier rate {rate:.4f}")
+        if rate < 0.9:
+            raise AssertionError(f"pair {p}: inlier rate {rate} < 0.9")
+    if min(counts) < 100:
+        raise AssertionError(f"too few keypoints: {counts}")
+    fc = extract_features(torch.from_numpy(frames[:1]), cfg)
+    mc, mg = fc.mask[0].numpy(), feats.mask[0].cpu().numpy()
+    share = paired_share(fc.x[0].numpy()[mc], fc.y[0].numpy()[mc],
+                         feats.x[0].cpu().numpy()[mg], feats.y[0].cpu().numpy()[mg])
+    log(f"  frame 0 on the CPU: {int(mc.sum())} kp, {share:.4f} paired within 0.5 px "
+        f"with the card's {int(mg.sum())}")
+    if share < 0.99 or abs(int(mc.sum()) - int(mg.sum())) > 0.01 * int(mc.sum()):
+        raise AssertionError(f"CPU vs card keypoints: paired share {share}")
+
+    # ---- 5. times ----
+    records = []
+    timing = dev.type == "cuda"   # CUDA events; a CPU rehearsal skips the times
+    if timing:
+        log("phase 5: times (CUDA events, mean over repeated calls)")
+        ex_ms = time_ms(lambda: extract_features(images, cfg), sync, 10)
+        m_ms = time_ms(lambda: match_descriptors_batch(
+            feats.desc[:-1], feats.desc[1:], feats.mask[:-1], feats.mask[1:], mcfg), sync, 20)
+        log(f"  extract {b} x {h}x{w}: {ex_ms:.3f} ms; match {b - 1} pairs: {m_ms:.3f} ms")
+    for name, kern in _build.KERNELS.items():
+        ms = plain_ms = None
+        if timing:
+            calls = par.calls[name]
+            # plain, kernel, kernel, plain over all of the main path's shapes
+            p1 = sum(time_ms(pl, sync, 5) for _, pl in calls)
+            k1 = sum(time_ms(kf, sync, 5) for kf, _ in calls)
+            k2 = sum(time_ms(kf, sync, 5) for kf, _ in calls)
+            p2 = sum(time_ms(pl, sync, 5) for _, pl in calls)
+            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                f"(sum over {len(calls)} main-path calls)")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"siftgpu_tpu_torch/csrc/{kern.source.name}",
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": par.err[name], "ms": ms, "plain_ms": plain_ms,
+        })
+    return records
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    try:  # importing the ops modules registers their kernels in _build.KERNELS
+        from siftgpu_tpu_torch.ops import (_build, detect_scores, grad_stencil,  # noqa: F401
+                                           kp_engine, match_kernel)
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
+        return 1
+
+    log("phase 1: device")
+    card = card_line()
+    log(f"  {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} device(s)")
+
+    log("phase 2: build")
+    for name, kern in _build.KERNELS.items():
+        t0 = time.perf_counter()
+        kern.lib()
+        regs = [ln.strip() for ln in (kern.build_log or "").splitlines() if "registers" in ln]
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s"
+            + (f" ({'; '.join(regs)})" if regs else ""))
+
+    records = run("cuda")
+    log(card_line())
+    log(json.dumps({"kernels": records}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,146 @@
+"""Build and bind the hand-written Hopper kernels of `csrc/`.
+
+Each kernel source is compiled by `nvcc` for `sm_90a` into a shared library
+with a plain C interface and loaded with `ctypes` — no PyTorch headers, so a
+build takes seconds.  Libraries go to `siftgpu_tpu_torch/_build/` (listed in
+`.gitignore`), named by a hash of the sources and flags: a changed source
+rebuilds, an unchanged one loads.  The build happens at a kernel's first
+launch, never at import.
+
+There is no fallback: without `nvcc`, or when the build fails, `Kernel.lib`
+raises.  The plain PyTorch versions run only for CPU tensors, chosen by the
+wrapper in each `ops/` module before it ever gets here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+__all__ = ["Kernel", "KERNELS", "BUILD_DIR", "CSRC", "find_nvcc", "check_tensor"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+
+# every kernel of the package, by name (filled as the ops modules import)
+KERNELS: dict[str, "Kernel"] = {}
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, then PATH, then /usr/local/cuda/bin."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.append(_DEFAULT_NVCC)
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH, /usr/local/cuda/bin): "
+        "the CUDA kernels cannot be built"
+    )
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` and rank `ndim`."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {getattr(t, 'device', type(t))}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+class Kernel:
+    """One CUDA source file, its C entry point(s) and a launch counter.
+
+    `launches` counts calls that launched the kernel on the card; callers
+    reset it to 0 themselves (`chip_smoke.py` does so around the main path).
+    """
+
+    def __init__(self, name: str, source: str, entry: dict, flags=()):
+        self.name = name
+        self.source = CSRC / source
+        self.entry = dict(entry)          # C function name -> ctypes argtypes
+        self.flags = list(flags)
+        self.launches = 0
+        self.build_log = None             # nvcc's output (ptxas register use)
+        self._lib = None
+        KERNELS[name] = self
+
+    def _sources(self):
+        return [self.source] + sorted(CSRC.glob("*.cuh"))
+
+    def lib_path(self, nvcc: str) -> Path:
+        h = hashlib.sha256()
+        for p in self._sources():
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+        h.update(" ".join([nvcc] + _ARCH + _FLAGS + self.flags).encode())
+        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
+
+    def build(self) -> Path:
+        """Compile the source if no library of its current hash exists."""
+        nvcc = find_nvcc()
+        out = self.lib_path(nvcc)
+        if out.exists():
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *_ARCH, *_FLAGS, *self.flags, "-I", str(CSRC),
+               "-o", tmp, str(self.source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        self.build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed for {self.source.name} (rc {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{self.build_log}"
+            )
+        os.replace(tmp, out)
+        return out
+
+    def lib(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = ctypes.CDLL(str(self.build()))
+            for fn, argtypes in self.entry.items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            lib.sift_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.sift_cuda_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def launch(self, fn: str, device: torch.device, *args) -> None:
+        """Call C entry `fn` on `device`'s current stream (appended as the
+        last argument); raise on a non-zero cudaGetLastError()."""
+        lib = self.lib()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = getattr(lib, fn)(*args, ctypes.c_void_p(stream))
+        if rc != 0:
+            msg = lib.sift_cuda_error_string(rc).decode()
+            raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc} ({msg})")
+        self.launches += 1
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

@@ -1,0 +1,69 @@
+"""Central-difference gradient stack: CUDA kernel + plain version.
+
+Replaces `siftgpu_tpu/ops/grad_stencil.py::grad_stencil` (Pallas) and mirrors
+the XLA route of `siftgpu_tpu/frontend/orient.py::gradient_stack`:
+
+    gx = 0.5 (g[y, x+1] - g[y, x-1])   (one-sided, unhalved, at x = 0 / W-1)
+    gy = 0.5 (g[y+1, x] - g[y-1, x])   (one-sided, unhalved, at y = 0 / H-1)
+
+over Gaussian levels 1..S, zero beyond (H, W) up to (Hp, Wp) =
+(max(H, min_h), max(W, min_w)), stored as bf16 with round-to-nearest-even.
+
+`grad_stencil(gauss, S, min_h, min_w)` takes the plain version for a CPU
+tensor and the CUDA kernel (`csrc/grad_stencil.cu`) for a CUDA tensor; the
+two are bit-identical (one subtraction and one exact halving per value).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["grad_stencil", "grad_stencil_plain", "KERNEL"]
+
+KERNEL = _build.Kernel(
+    "grad_stencil", "grad_stencil.cu",
+    {"grad_stencil_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+     + [ctypes.c_void_p]},
+)
+
+
+def grad_stencil_plain(gauss: torch.Tensor, S: int, min_h: int, min_w: int):
+    """gauss: [B, S+3, H, W] f32 -> (gx, gy) [B, S, Hp, Wp] bf16."""
+    g = gauss[:, 1 : S + 1].to(torch.float32)
+    B, _, H, W = g.shape
+    gp = torch.nn.functional.pad(g, (1, 1, 1, 1), mode="replicate")
+    gx = 0.5 * (gp[:, :, 1 : H + 1, 2:] - gp[:, :, 1 : H + 1, :W])
+    gy = 0.5 * (gp[:, :, 2:, 1 : W + 1] - gp[:, :, :H, 1 : W + 1])
+    gx[:, :, :, 0] = g[:, :, :, 1] - g[:, :, :, 0]
+    gx[:, :, :, -1] = g[:, :, :, -1] - g[:, :, :, -2]
+    gy[:, :, 0, :] = g[:, :, 1, :] - g[:, :, 0, :]
+    gy[:, :, -1, :] = g[:, :, -1, :] - g[:, :, -2, :]
+    ph, pw = max(0, min_h - H), max(0, min_w - W)
+    gx = torch.nn.functional.pad(gx, (0, pw, 0, ph))
+    gy = torch.nn.functional.pad(gy, (0, pw, 0, ph))
+    return gx.to(torch.bfloat16), gy.to(torch.bfloat16)
+
+
+def _grad_stencil_cuda(gauss: torch.Tensor, S: int, min_h: int, min_w: int):
+    _build.check_tensor(gauss, "gauss", torch.float32, 4)
+    B, L, H, W = gauss.shape
+    if L < S + 1 or H < 2 or W < 2:
+        raise ValueError(f"gauss: shape {tuple(gauss.shape)} too small for S={S}")
+    Hp, Wp = max(H, min_h), max(W, min_w)
+    out = torch.empty((2, B, S, Hp, Wp), dtype=torch.bfloat16, device=gauss.device)
+    p = _build.ptr
+    KERNEL.launch("grad_stencil_launch", gauss.device,
+                  p(gauss), p(out[0]), p(out[1]), B, L, S, H, W, Hp, Wp)
+    return out[0], out[1]
+
+
+def grad_stencil(gauss: torch.Tensor, S: int, min_h: int = 0, min_w: int = 0):
+    """Gradients of Gaussian levels 1..S of gauss [B, S+3, H, W] f32 ->
+    (gx, gy) [B, S, max(H, min_h), max(W, min_w)] bf16."""
+    if gauss.device.type == "cpu":
+        return grad_stencil_plain(gauss, S, min_h, min_w)
+    return _grad_stencil_cuda(gauss, S, min_h, min_w)
