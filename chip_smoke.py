@@ -3,22 +3,36 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — `extract_features` on four 480x640 frames
-related by known shifts (K = 2048), then `match_descriptors_batch` on the
-three consecutive pairs — and checks it:
+Drives the port's two paths on 480x640 frames related by known shifts
+(K = 2048): the main path — `extract_features` on four frames, then
+`match_descriptors_batch` on the three consecutive pairs — and the
+SiftGPU-style facade path — `SiftTPU.run_sift` on two frames,
+`SiftMatchTPU.get_sift_match` / `get_guided_sift_match` (H, F, both) on
+4096-padded sets, descriptor-only mode (`set_keypoint_list` +
+`run_sift_with_keypoints`), `-obo` and `-fo -1`.  It checks them:
 
   1. device: a CUDA card is required (exit 1 otherwise); prints
      `nvidia-smi --query-gpu=name,power.limit` ;
-  2. build: compiles every kernel of `siftgpu_tpu_torch/csrc` with nvcc
-     (into `siftgpu_tpu_torch/_build/`) and prints the build times;
+  2. build: compiles every library of `siftgpu_tpu_torch/csrc` with nvcc
+     (into `siftgpu_tpu_torch/_build/`), one nvcc per source, all started
+     together, and prints the build times and register use;
   3. parity: each kernel against its plain PyTorch version on the card, on
-     inputs taken from a real main-path run, at the main path's shapes, then
-     at edge shapes (odd sizes, a flat image, masks, exact ties);
+     inputs taken from real runs of its path (the facade's kernels on the
+     calls that path makes, recorded), at the path's shapes, then at edge
+     shapes (odd sizes, a flat image, masks, exact ties, grids that leave
+     the image, rows fully gated out, near-vertical epilines);
   4. main path: launch counters reset to 0, one extract + match, every
-     kernel must have launched; >= 90% known-shift inliers per pair; frame 0
-     on the CPU must pair >= 99% of its keypoints with the card's;
-  5. times (CUDA events): extract and match per batch, and each kernel
-     against its plain version at the main path's shapes.
+     main-path kernel must have launched; >= 90% known-shift inliers per
+     pair; frame 0 on the CPU must pair >= 99% of its keypoints with the
+     card's;
+  4b. facade path: launch counters reset to 0, the facade calls above; both
+     facade kernels must have launched; >= 90% inliers for plain and guided
+     matching and every guided pair inside its gate; descriptor-only
+     descriptors against the full pipeline's (cosine min > 0.95, mean >
+     0.99) and within 1 step of the CPU's; -obo identical to the default
+     extraction; -fo -1 pairing >= 99% of its keypoints with the CPU's;
+  5. times (CUDA events): extract and match per batch, the facade calls, and
+     each kernel against its plain version at its path's shapes.
 
 Any failed check raises.  The last three lines are the card's name and
 power limit, one JSON object with a record per kernel, and
@@ -27,6 +41,7 @@ power limit, one JSON object with a record per kernel, and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -41,7 +56,11 @@ REPLACES = {
     "grad_stencil": "siftgpu_tpu/ops/grad_stencil.py:154",
     "orient_sample": "siftgpu_tpu/ops/kp_engine.py:937",
     "match_best2": "siftgpu_tpu/ops/match_kernel.py:230",
+    "match_best2_gated": "siftgpu_tpu/ops/match_kernel.py:82",
+    "sample_gradients": "siftgpu_tpu/ops/desc_sampler.py:102",
 }
+MAIN_KERNELS = ("detect_scores", "grad_stencil", "orient_sample", "match_best2")
+FACADE_KERNELS = ("match_best2_gated", "sample_gradients")
 
 
 def log(msg: str) -> None:
@@ -228,6 +247,52 @@ class Parity:
                   lambda: mk.match_best2_plain(d0, d1, rn0, rn1, m0, m1), timed)
 
 
+    def sample(self, args, label, timed=True):
+        from siftgpu_tpu_torch.ops import desc_sampler as dsm
+
+        got = dsm.sample_gradients(*args)
+        self.sync()
+        ref = dsm.sample_gradients_plain(*args)
+        for name, g, r in zip(("sgx", "sgy"), got, ref):
+            if not torch_equal_bits(g, r):
+                raise AssertionError(f"sample_gradients ({label}): {name} differs from the plain version")
+        self.note("sample_gradients", 0.0, lambda: dsm.sample_gradients(*args),
+                  lambda: dsm.sample_gradients_plain(*args), timed)
+
+    def gated(self, args, label, timed=True):
+        import torch
+
+        from siftgpu_tpu_torch.ops import match_kernel as mk
+
+        got = mk.match_best2_gated(*args)
+        self.sync()
+        ref = mk.match_best2_gated_plain(*args)
+        for name, g, r in zip(("bsim", "ssim", "bestj", "col_best_i"), got, ref):
+            if not torch_equal_bits(g, r):
+                raise AssertionError(f"match_best2_gated ({label}): {name} differs from the plain version")
+        gated_out = int((~torch.isfinite(ref[0]) & args[4]).sum())
+        log(f"  match_best2_gated ({label}, gate {args[6]!r}, {tuple(args[0].shape)} x "
+            f"{tuple(args[1].shape)}): identical; {gated_out} live rows fully gated out")
+        self.note("match_best2_gated", 0.0, lambda: mk.match_best2_gated(*args),
+                  lambda: mk.match_best2_gated_plain(*args), timed)
+
+
+@contextlib.contextmanager
+def recording(module, name: str, calls: list):
+    """Record the positional arguments of every call of `module.name`."""
+    orig = getattr(module, name)
+
+    def rec(*args):
+        calls.append(args)
+        return orig(*args)
+
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
 def torch_equal_bits(a, b) -> bool:
     import torch
 
@@ -282,7 +347,185 @@ def edge_cases(dev, sync):
     m1[:, [3, 300]] = True
     m0[1, :] = False                # pair 1: every row masked
     t = lambda a: torch.from_numpy(a).to(dev)
-    Parity(SiftConfig(), sync).match(t(d0), t(d1), t(m0), t(m1), "edge: sizes, masks, ties")
+    par = Parity(SiftConfig(), sync)
+    par.match(t(d0), t(d1), t(m0), t(m1), "edge: sizes, masks, ties")
+
+    # gated: the same tie sets (pair 0), locations that keep the ties inside
+    # the gates, rows 90-99 moved across the epilines (fully gated out)
+    from siftgpu_tpu_torch.frontend import match as fmatch
+    from siftgpu_tpu_torch.ops import match_kernel as mk
+
+    loc0 = rng.uniform(0, 640, (100, 2))
+    loc1 = rng.uniform(0, 640, (333, 2))
+    loc1[:100] = loc0 + np.array(SHIFT) + rng.normal(0, 0.7, (100, 2))
+    loc0[[40, 77]] = loc0[5]
+    loc1[[3, 300]] = loc0[5] + np.array(SHIFT)
+    loc0[90:] += 5000.0 * np.array([2.0, 3.0]) / np.sqrt(13.0)
+    H = t(np.array([[1, 0, SHIFT[0]], [0, 1, SHIFT[1]], [0, 0, 1]], np.float32))
+    for label, Hm, Fm in (("H", H, None), ("F", None, t(cross(*SHIFT))), ("H+F", H, t(cross(*SHIFT))),
+                          ("near-vertical epilines", None, t(cross(1e-3, 1.0))),
+                          ("H + near-vertical epilines", H, t(cross(1e-3, 1.0)))):
+        gate, rows, cols = fmatch.gate_operands(t(loc0.astype(np.float32)),
+                                                t(loc1.astype(np.float32)), Hm, Fm)
+        e0, e1 = t(d0[:1]), t(d1[:1])
+        par.gated((e0, e1, mk.recip_norms(e0), mk.recip_norms(e1), t(m0[:1]), t(m1[:1]), gate,
+                   rows[None].contiguous(), cols[None].contiguous(),
+                   *fmatch.gate_thresholds(3.0, 2.0)), f"edge: {label}", timed=False)
+
+    # sampler: odd plane sizes, grids that leave the planes, N = 1
+    for P, hh, ww, n in ((5, 37, 53, 1), (3, 61, 29, 77)):
+        g = torch.from_numpy(rng.normal(0, 1, (2, P, hh, ww)).astype(np.float32)).to(torch.bfloat16)
+        cy = rng.uniform(-20, hh + 20, (n, 1))
+        cx = rng.uniform(-20, ww + 20, (n, 1))
+        par.sample((g[0].to(dev), g[1].to(dev), t(rng.integers(0, P, n).astype(np.int32)),
+                    t((cy + rng.uniform(-30, 30, (n, 256))).astype(np.float32)),
+                    t((cx + rng.uniform(-30, 30, (n, 256))).astype(np.float32))),
+                   f"edge: {P}x{hh}x{ww}, N={n}", timed=False)
+    log("  edge cases: match_best2_gated and sample_gradients bit-identical to the plain versions")
+
+
+def cross(tx: float, ty: float) -> np.ndarray:
+    """F = [t]x of the pure image translation t = (tx, ty, 0)."""
+    return np.array([[0, 0, ty], [0, 0, -tx], [-ty, tx, 0]], np.float32)
+
+
+def shift_inliers(k0, k1, pairs, tol=1.0) -> float:
+    """Share of index pairs consistent with the known shift (< tol px)."""
+    if len(pairs) == 0:
+        return 0.0
+    err = np.hypot(k1[pairs[:, 1], 0] - (k0[pairs[:, 0], 0] + SHIFT[0]),
+                   k1[pairs[:, 1], 1] - (k0[pairs[:, 0], 1] + SHIFT[1]))
+    return float((err < tol).mean())
+
+
+def epipolar_distance(F, p0, p1) -> np.ndarray:
+    """Symmetric epipolar distance max(d(x1, F x0), d(x0, F^T x1)), float64."""
+    F = F.astype(np.float64)
+    h0 = np.concatenate([p0, np.ones((len(p0), 1))], 1)
+    h1 = np.concatenate([p1, np.ones((len(p1), 1))], 1)
+    la, lb = h0 @ F.T, h1 @ F
+    da = np.abs((la * h1).sum(1)) / np.hypot(la[:, 0], la[:, 1])
+    db = np.abs((lb * h0).sum(1)) / np.hypot(lb[:, 0], lb[:, 1])
+    return np.maximum(da, db)
+
+
+def facade_phase(dev, sync, frames, k):
+    """Phase 4b: the facade path with launch counters reset before it.
+    Returns (launches, the recorded kernel calls, the timed facade calls)."""
+    import torch
+
+    from siftgpu_tpu_torch.frontend import describe, match as fmatch
+    from siftgpu_tpu_torch.ops import _build
+    from siftgpu_tpu_torch.pipeline.api import SiftMatchTPU, SiftTPU
+
+    log("phase 4b: facade path")
+    sampled, gated = [], []
+    for kern in _build.KERNELS.values():
+        kern.launches = 0
+    sift = SiftTPU(device=dev, max_keypoints=k)
+    sift.run_sift(frames[0])
+    feats0 = sift._feats
+    k0, d0 = sift.get_feature_vector()
+    sift.run_sift(frames[1])
+    k1, d1 = sift.get_feature_vector()
+    matcher = SiftMatchTPU(max_sift=4096, device=dev)
+    for i, (kk, dd) in enumerate(((k0, d0), (k1, d1))):
+        matcher.set_descriptors(i, dd)
+        matcher.set_feature_location(i, kk)
+    pairs = matcher.get_sift_match()
+    rate = shift_inliers(k0, k1, pairs)
+    log(f"  run_sift: {len(k0)}, {len(k1)} keypoints; get_sift_match: {len(pairs)} pairs, "
+        f"inlier rate {rate:.4f}")
+    if rate < 0.9 or min(len(k0), len(k1)) < 100:
+        raise AssertionError(f"facade: plain matching inlier rate {rate}")
+
+    Hm = np.array([[1, 0, SHIFT[0]], [0, 1, SHIFT[1]], [0, 0, 1]], np.float32)
+    F = cross(*SHIFT)
+    guided_kw = {"H": dict(H=Hm, hdistmax=3.0), "F": dict(F=F, fdistmax=2.0),
+                 "H+F": dict(H=Hm, F=F, hdistmax=3.0, fdistmax=2.0)}
+    with recording(fmatch, "match_best2_gated", gated):
+        for label, kw in guided_kw.items():
+            gp = matcher.get_guided_sift_match(**kw)
+            p0, p1 = k0[gp[:, 0], :2].astype(np.float64), k1[gp[:, 1], :2].astype(np.float64)
+            if "H" in kw:  # the f32 gate may pass pairs within f32 rounding of the bound
+                d = np.hypot(*(p1 - (p0 + np.array(SHIFT))).T)
+                if len(d) and d.max() > 3.0 * (1 + 1e-5):
+                    raise AssertionError(f"guided {label}: a pair {d.max()} px from H x0")
+            if "F" in kw:
+                d = epipolar_distance(F, p0, p1)
+                if len(d) and d.max() > 2.0 * (1 + 1e-5) + 1e-4:
+                    raise AssertionError(f"guided {label}: a pair {d.max()} px off its epiline")
+            rate = shift_inliers(k0, k1, gp)
+            log(f"  get_guided_sift_match ({label}): {len(gp)} pairs, all inside the gate, "
+                f"inlier rate {rate:.4f}")
+            if rate < 0.9 or len(gp) < 100:
+                raise AssertionError(f"guided {label}: inlier rate {rate}, {len(gp)} pairs")
+    # the gate operands are formed elementwise (no TF32 matmul): the card's
+    # equal the CPU's bit for bit
+    locs = [torch.from_numpy(np.pad(kk[:, :2], ((0, 4096 - len(kk)), (0, 0)))) for kk in (k0, k1)]
+    for (label, kw), args in zip(guided_kw.items(), gated):
+        _, rows, cols = fmatch.gate_operands(
+            *locs, *(None if kw.get(n) is None else torch.from_numpy(kw[n]) for n in ("H", "F")))
+        if not (torch_equal_bits(args[7][0].cpu(), rows) and torch_equal_bits(args[8][0].cpu(), cols)):
+            raise AssertionError(f"guided {label}: gate operands differ between the card and the CPU")
+    log("  gate operands: the card's bit-identical to the CPU's for H, F and H+F")
+
+    with recording(describe, "sample_gradients", sampled):
+        sift.set_keypoint_list(k0)
+        sift.run_sift_with_keypoints(frames[0])
+    fk = sift._feats
+    dk = fk.desc[0].cpu().numpy()
+    if not bool(fk.mask.all()):
+        raise AssertionError("descriptor-only: a keypoint of the image got no octave")
+    a, b = dk.astype(np.float64), d0.astype(np.float64)
+    cos = (a * b).sum(1) / np.maximum(np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1), 1e-9)
+    cpu = SiftTPU(device="cpu", max_keypoints=k)
+    cpu.set_keypoint_list(k0)
+    cpu.run_sift_with_keypoints(frames[0])
+    same = cpu._feats.octave[0].numpy() == fk.octave[0].cpu().numpy()
+    step = np.abs(cpu._feats.desc[0].numpy().astype(int) - dk.astype(int))[same]
+    log(f"  run_sift_with_keypoints: {len(dk)} keypoints, cosine to the full pipeline min "
+        f"{cos.min():.4f} mean {cos.mean():.5f}; CPU run: {int((~same).sum())} octave "
+        f"assignments differ, max step {int(step.max()) if step.size else 0} on the rest")
+    if cos.min() <= 0.95 or cos.mean() <= 0.99:
+        raise AssertionError(f"descriptor-only cosine min {cos.min()}, mean {cos.mean()}")
+    if same.mean() < 0.99 or (step.size and step.max() > 1):
+        raise AssertionError("descriptor-only: card and CPU disagree")
+
+    obo = SiftTPU(["-obo"], device=dev, max_keypoints=k)
+    obo.run_sift(frames[0])
+    m = feats0.mask
+    if not torch.equal(obo._feats.mask, m) or not all(
+            torch.equal(x[m], y[m]) for x, y in zip(feats0, obo._feats)):
+        raise AssertionError("-obo differs from the default extraction")
+    log(f"  -obo: identical to the default extraction in all {int(m.sum())} valid slots")
+
+    h, w = frames[0].shape
+    small = make_frames(h // 2, w // 2, 1)[0]
+    up = SiftTPU(["-fo", "-1"], device=dev, max_keypoints=k)
+    up.run_sift(small)
+    upc = SiftTPU(["-fo", "-1"], device="cpu", max_keypoints=k)
+    upc.run_sift(small)
+    (ku, _), (kc, _) = up.get_feature_vector(), upc.get_feature_vector()
+    share = paired_share(kc[:, 0], kc[:, 1], ku[:, 0], ku[:, 1])
+    log(f"  -fo -1 on {h // 2}x{w // 2} (octave 0 {up._cfg.base_shape}): {len(ku)} keypoints, "
+        f"{share:.4f} of the CPU's {len(kc)} paired within 0.5 px")
+    if share < 0.99 or abs(len(ku) - len(kc)) > 0.01 * len(kc):
+        raise AssertionError(f"-fo -1: CPU vs card paired share {share}")
+    sync()
+    launches = {name: kern.launches for name, kern in _build.KERNELS.items()}
+    log(f"  launches {launches}")
+    if dev == "cuda":
+        missing = [n for n in FACADE_KERNELS if launches[n] == 0]
+        if missing:
+            raise AssertionError(f"facade path did not launch {missing}")
+    timed = {
+        "run_sift (1 frame)": lambda: sift.run_sift(frames[0]),
+        "get_sift_match (4096-padded)": matcher.get_sift_match,
+        "get_guided_sift_match (H+F)": lambda: matcher.get_guided_sift_match(**guided_kw["H+F"]),
+        "run_sift_with_keypoints": lambda: sift.run_sift_with_keypoints(frames[0]),
+    }
+    return launches, sampled, gated, timed
 
 
 def run(device: str, h=H, w=W, b=B, k=K):
@@ -338,7 +581,7 @@ def run(device: str, h=H, w=W, b=B, k=K):
     sync()
     launches = {name: kern.launches for name, kern in _build.KERNELS.items()}
     if dev.type == "cuda":
-        missing = [n for n, c in launches.items() if c == 0]
+        missing = [n for n in MAIN_KERNELS if launches[n] == 0]
         if missing:
             raise AssertionError(f"main path did not launch {missing}")
     counts = feats.count.cpu().tolist()
@@ -360,6 +603,17 @@ def run(device: str, h=H, w=W, b=B, k=K):
     if share < 0.99 or abs(int(mc.sum()) - int(mg.sum())) > 0.01 * int(mc.sum()):
         raise AssertionError(f"CPU vs card keypoints: paired share {share}")
 
+    # ---- 4b. the facade path, counted; then its kernels on the recorded calls ----
+    f_launches, sampled, gated, facade_calls = facade_phase(device, sync, frames[:2], k)
+    for name in FACADE_KERNELS:
+        launches[name] = f_launches[name]
+    for args in sampled:
+        par.sample(args, "facade")
+    for args, label in zip(gated, ("H", "F", "H+F")):
+        par.gated(args, f"facade {label}")
+    log(f"  sample_gradients: bit-identical on the {len(sampled)} calls of "
+        "run_sift_with_keypoints (every octave, 512-keypoint chunks)")
+
     # ---- 5. times ----
     records = []
     timing = dev.type == "cuda"   # CUDA events; a CPU rehearsal skips the times
@@ -369,6 +623,8 @@ def run(device: str, h=H, w=W, b=B, k=K):
         m_ms = time_ms(lambda: match_descriptors_batch(
             feats.desc[:-1], feats.desc[1:], feats.mask[:-1], feats.mask[1:], mcfg), sync, 20)
         log(f"  extract {b} x {h}x{w}: {ex_ms:.3f} ms; match {b - 1} pairs: {m_ms:.3f} ms")
+        for label, fn in facade_calls.items():
+            log(f"  facade {label}: {time_ms(fn, sync, 5):.3f} ms")
     for name, kern in _build.KERNELS.items():
         ms = plain_ms = None
         if timing:
@@ -380,7 +636,7 @@ def run(device: str, h=H, w=W, b=B, k=K):
             p2 = sum(time_ms(pl, sync, 5) for _, pl in calls)
             ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
             log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-                f"(sum over {len(calls)} main-path calls)")
+                f"(sum over {len(calls)} calls of its path)")
         records.append({
             "name": name, "route": "cuda",
             "source": f"siftgpu_tpu_torch/csrc/{kern.source.name}",
@@ -398,8 +654,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     try:  # importing the ops modules registers their kernels in _build.KERNELS
-        from siftgpu_tpu_torch.ops import (_build, detect_scores, grad_stencil,  # noqa: F401
-                                           kp_engine, match_kernel)
+        from siftgpu_tpu_torch.ops import (_build, desc_sampler, detect_scores,  # noqa: F401
+                                           grad_stencil, kp_engine, match_kernel)
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 1
@@ -409,13 +665,12 @@ def main() -> int:
     log(f"  {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
 
-    log("phase 2: build")
-    for name, kern in _build.KERNELS.items():
-        t0 = time.perf_counter()
-        kern.lib()
-        regs = [ln.strip() for ln in (kern.build_log or "").splitlines() if "registers" in ln]
-        log(f"  {name}: {time.perf_counter() - t0:.1f} s"
-            + (f" ({'; '.join(regs)})" if regs else ""))
+    log("phase 2: build (one nvcc per library, all at once)")
+    t0 = time.perf_counter()
+    for lib, (sec, out) in _build.build_all().items():
+        regs = [ln.split(":", 1)[1].strip() for ln in out.splitlines() if "registers" in ln]
+        log(f"  {lib}: {sec:.1f} s" + (f" ({'; '.join(regs)})" if regs else ""))
+    log(f"  all libraries: {time.perf_counter() - t0:.1f} s")
 
     records = run("cuda")
     log(card_line())

@@ -8,9 +8,13 @@ Prints:
   1. host-clock stage times (each stage ends in torch.cuda.synchronize());
   2. a torch.profiler table of device time by kernel over 5 extract + match
      iterations, and the device busy share of that window;
-  3. the FMA probe: the detect_scores kernel built WITHOUT -fmad=false,
-     against the plain version — how many score-plane entries and record
-     values change when nvcc contracts multiply-adds.
+  3. the FMA probes: the detect_scores and sample_gradients kernels built
+     WITHOUT -fmad=false, against their plain versions — how many values
+     change when nvcc contracts multiply-adds;
+  4. the TF32 probe: the guided H-gate operands of frames 0 and 1 formed by a
+     [N, 3] x [3, 3] matmul with TF32 allowed, against the elementwise f32
+     operands the port uses — how far they move and how many gate decisions
+     (3 px) flip.
 """
 
 from __future__ import annotations
@@ -20,10 +24,10 @@ import time
 
 import torch
 
-from chip_smoke import K, card_line, make_frames
+from chip_smoke import K, SHIFT, card_line, make_frames, recording
 from siftgpu_tpu_torch import MatchConfig, SiftConfig, extract_features, match_descriptors_batch
-from siftgpu_tpu_torch.frontend import detect, extract, fused, orient, pyramid
-from siftgpu_tpu_torch.ops import _build, detect_scores
+from siftgpu_tpu_torch.frontend import describe, detect, extract, fused, match, orient, pyramid, redetect
+from siftgpu_tpu_torch.ops import _build, desc_sampler, detect_scores, match_kernel
 
 
 def stage_times(images, cfg, mcfg, reps=10):
@@ -132,7 +136,59 @@ def main() -> int:
     print(f"FMA probe (detect_scores without -fmad=false): {n_flip} of {n_px} row-pooled "
           f"score entries differ from the plain version; record max ulp (at candidates, "
           f"anywhere) per octave and field {rec_ulp}")
+    sampler_fma_probe(images, cfg)
+    gate_tf32_probe(images, cfg)
     return 0
+
+
+def sampler_fma_probe(images, cfg):
+    """sample_gradients built with nvcc's default contraction, on the calls
+    of descriptor-only mode for frame 0's own keypoints."""
+    f = extract_features(images[:1], cfg)
+    keys = f.keypoints[0][f.mask[0]]
+    calls = []
+    with recording(describe, "sample_gradients", calls):
+        redetect.describe_at_keypoints(images[:1], keys[None], cfg)
+    probe = _build.Kernel("sample_gradients_fmad", "desc_sampler.cu", desc_sampler.KERNEL.entry)
+    _build.KERNELS.pop("sample_gradients_fmad")
+    main_kernel = desc_sampler.KERNEL
+    n_diff = n_all = 0
+    max_abs = 0.0
+    try:
+        desc_sampler.KERNEL = probe
+        for args in calls:
+            got = desc_sampler._sample_gradients_cuda(*args)
+            ref = desc_sampler.sample_gradients_plain(*args)
+            for g, r in zip(got, ref):
+                n_diff += int((g.view(torch.int32) != r.view(torch.int32)).sum())
+                n_all += g.numel()
+                max_abs = max(max_abs, float((g - r).abs().max()))
+    finally:
+        desc_sampler.KERNEL = main_kernel
+    print(f"FMA probe (sample_gradients without -fmad=false): {n_diff} of {n_all} samples "
+          f"differ from the plain version, max abs {max_abs:.3g}")
+
+
+def gate_tf32_probe(images, cfg):
+    """The H-gate operands from a TF32 matmul against the elementwise ones."""
+    f = extract_features(images[:2], cfg)
+    loc0 = f.keypoints[0][f.mask[0], :2].contiguous()
+    loc1 = f.keypoints[1][f.mask[1], :2].contiguous()
+    H = torch.tensor([[1, 0, SHIFT[0]], [0, 1, SHIFT[1]], [0, 0, 1]], device=images.device)
+    gate, rows, cols = match.gate_operands(loc0, loc1, H=H)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        p = torch.cat([loc0, torch.ones_like(loc0[:, :1])], 1) @ H.T
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    rows_t = torch.stack([p[:, 0] / p[:, 2], p[:, 1] / p[:, 2]])
+    h2, _ = match.gate_thresholds(3.0, 0.0)
+    keep = match_kernel.gate_matrix(gate, rows[None], cols[None], h2, 0.0)
+    keep_t = match_kernel.gate_matrix(gate, rows_t[None], cols[None], h2, 0.0)
+    print(f"TF32 probe (H-gate operands by a TF32 matmul): max |px, py| change "
+          f"{float((rows_t - rows).abs().max()):.4g} px; {int((keep != keep_t).sum())} of "
+          f"{int(keep.sum())} in-gate pairs flip at 3 px ({len(loc0)} x {len(loc1)} keypoints)")
 
 
 if __name__ == "__main__":

@@ -9,7 +9,10 @@ package's configs and outputs into the port:
   - `to_torch` turns a NumPy or JAX array (anything `np.asarray` accepts,
     bf16 included) into a tensor, and `tree_to_torch` does so field by field
     for a NamedTuple, so one stage's reference output can feed the next stage
-    of the port.
+    of the port;
+  - `keypoints_from_reference` takes the valid (x, y, sigma, theta) rows of
+    a reference `Features` (the list descriptor-only mode consumes), and
+    `matrix_to_torch` a reference H or F as an f32 tensor.
 
 Nothing here imports JAX: arrays arrive through `np.asarray`.
 """
@@ -25,7 +28,7 @@ from .core.config import MatchConfig, SiftConfig
 
 __all__ = [
     "sift_config_from_reference", "match_config_from_reference",
-    "to_torch", "tree_to_torch",
+    "to_torch", "tree_to_torch", "keypoints_from_reference", "matrix_to_torch",
 ]
 
 
@@ -65,3 +68,16 @@ def tree_to_torch(nt, cls, device: str | torch.device = "cpu"):
         return v if isinstance(v, (int, float)) else to_torch(v, device)
 
     return cls(**{name: conv(getattr(nt, name)) for name in cls._fields})
+
+
+def keypoints_from_reference(feats, b: int = 0) -> np.ndarray:
+    """[N, 4] float32 (x, y, sigma, theta) of image b's valid keypoints of a
+    reference `Features` (or the port's: any object with those fields)."""
+    m = np.asarray(feats.mask)[b]
+    keys = np.stack([np.asarray(getattr(feats, f))[b] for f in ("x", "y", "sigma", "theta")], -1)
+    return keys[m].astype(np.float32)
+
+
+def matrix_to_torch(M, device: str | torch.device = "cpu") -> torch.Tensor:
+    """A reference homography or fundamental matrix [3, 3] -> f32 tensor."""
+    return torch.from_numpy(np.asarray(M, np.float32).reshape(3, 3).copy()).to(device)

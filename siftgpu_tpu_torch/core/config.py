@@ -15,8 +15,6 @@ this package:
   use_pallas
       the port picks its route from the input tensor's device: CUDA tensors
       go through the Hopper kernels, CPU tensors through the plain versions
-  process_obo
-      octave-by-octave extraction is not ported yet
 """
 
 from __future__ import annotations
@@ -55,7 +53,7 @@ class SiftConfig:
     dog_levels: int = 3            # S
     sigma0: float = 1.6
     sigma_n: float = 0.5
-    first_octave: int = 0          # -1 => upsample input 2x (not ported yet)
+    first_octave: int = 0          # -1 => upsample input 2x
     num_octaves: int = 0           # 0 => auto from image size
     min_octave_dim: int = 16
     kernel_truncate: float = 4.0   # filter radius = ceil(truncate * sigma)
@@ -100,7 +98,7 @@ class SiftConfig:
     pyramid_dtype: str = "float32"
     pyramid_precision: str = "high"  # TPU-only (ignored)
     use_pallas: bool = True          # ignored: the route follows the device
-    process_obo: bool = False        # not ported yet (ignored)
+    process_obo: bool = False        # -obo: SiftTPU extracts octave by octave
 
     # ---------------- derived static geometry ----------------
 

@@ -1,17 +1,25 @@
-"""128-D SIFT descriptor binning from pre-sampled gradients.
+"""128-D SIFT descriptors: rotated 16x16 grid sampling + trilinear binning.
 
-Port of the fused-path binning of `siftgpu_tpu/frontend/describe.py`:
-`bin_descriptors` on the `_bin_chunk_fast` body in f32 (what the reference's
-CPU route runs) — circular-tent orientation weights and one [G², D²]
-contraction against the constant `W2` — then `finalize_descriptors`
-(normalize -> clip 0.2 -> renormalize -> uint8).  The TPU's bf16 binning
-has no counterpart: the port bins in f32 on every device.
+Port of `siftgpu_tpu/frontend/describe.py`, two paths:
 
-Wrap edge: ob == NB (rounding of an angle ~2π) puts its weight on bin 0,
-as the oracle's `floor(ob) % NB` does.
+  - the fused path (`extract_features`): `bin_descriptors` bins samples that
+    `ops/kp_engine.py` took, on the `_bin_chunk_fast` body in f32 (what the
+    reference's CPU route runs) — circular-tent orientation weights and one
+    [G², D²] contraction against the constant `W2`.  Wrap edge: ob == NB
+    (an angle that rounds to 2π) puts its weight on bin 0, as the oracle's
+    `floor(ob) % NB` does.
+  - the unfused path (descriptor-only mode, `frontend/redetect.py`):
+    `compute_descriptors` takes the grid coordinates (`_sample_coords`), the
+    bilinear samples (`_bilerp`, through `ops/desc_sampler.py`: the CUDA
+    kernel on the card, the plain gather on the CPU), and bins them with
+    `_bin_chunk`: one-hot soft assignment and a double spatial contraction in
+    full f32.  Its wrap edge keeps `clip(floor(ob), 0, NB-1)`: ob == NB lands
+    on bin NB-1.
 
-This is plain PyTorch on both devices (the reference's binning is XLA, not
-Pallas); the contraction is a `torch.matmul` in full f32.
+Both end in `finalize_descriptors` (normalize -> clip 0.2 -> renormalize ->
+uint8).  The TPU's bf16 binning has no counterpart: the port bins in f32 on
+every device.  Binning is plain PyTorch on both devices (the reference's
+binning is XLA, not Pallas); its contractions run in full f32 (`full_f32`).
 """
 
 from __future__ import annotations
@@ -22,9 +30,11 @@ import numpy as np
 import torch
 
 from ..core.config import SiftConfig
+from ..ops.desc_sampler import sample_gradients
+from .orient import GradStack
 from .pyramid import full_f32
 
-__all__ = ["bin_descriptors", "finalize_descriptors"]
+__all__ = ["bin_descriptors", "finalize_descriptors", "compute_descriptors"]
 
 _TWO_PI = 6.283185307179586
 
@@ -101,4 +111,94 @@ def bin_descriptors(sgx: torch.Tensor, sgy: torch.Tensor, theta: torch.Tensor,
         for i in range(0, K2, chunk)
     ]
     raw = torch.cat(outs, dim=1) if outs else sgx.new_zeros((B, 0, cfg.descriptor_dim))
+    return finalize_descriptors(raw, cfg)
+
+
+# ---------------- the unfused path (descriptor-only mode) ----------------
+
+def _sample_coords(y, x, sigma, theta, cfg: SiftConfig):
+    """Rotated sample-grid coordinates. y..theta: [B, C] -> py, px [B, C, G, G]."""
+    G = cfg.descriptor_grid
+    t, _, _ = _grid_constants(G, cfg.descriptor_width, cfg.descriptor_samples_per_cell)
+    t = torch.from_numpy(t).to(y.device)
+    spc = cfg.descriptor_spacing * sigma / cfg.descriptor_samples_per_cell  # [B, C]
+    u = t[None, None, None, :] * spc[..., None, None]      # [B, C, 1, G] (cols)
+    v = t[None, None, :, None] * spc[..., None, None]      # [B, C, G, 1] (rows)
+    ct = torch.cos(theta)[..., None, None]
+    st = torch.sin(theta)[..., None, None]
+    px = x[..., None, None] + ct * u - st * v              # [B, C, G, G]
+    py = y[..., None, None] + st * u + ct * v
+    return py, px
+
+
+def _bilerp(grads: GradStack, py, px, lvl):
+    """Bilinear samples of gx, gy at py, px [B, C, G, G] on level `lvl`
+    [B, C] (0-based) -> sgx, sgy [B, C, G, G], through `sample_gradients`
+    on the flattened [B·S, Hp, Wp] planes (the reference's `_bilerp_pallas`
+    layout)."""
+    B, C, G, _ = py.shape
+    S, Hp, Wp = grads.gx.shape[1:]
+    b_idx = torch.arange(B, dtype=torch.int32, device=py.device)[:, None]
+    plane = (b_idx * S + lvl.to(torch.int32)).reshape(B * C)
+    sgx, sgy = sample_gradients(
+        grads.gx.reshape(B * S, Hp, Wp), grads.gy.reshape(B * S, Hp, Wp),
+        plane.contiguous(), py.reshape(B * C, G * G).contiguous(),
+        px.reshape(B * C, G * G).contiguous(),
+    )
+    return sgx.reshape(B, C, G, G), sgy.reshape(B, C, G, G)
+
+
+def _bin_chunk(sgx, sgy, theta, cfg: SiftConfig):
+    """Raw descriptors [B, C, 128] from samples sgx, sgy [B, C, G²] (out of
+    image samples zeroed) and theta [B, C]: one-hot soft orientation
+    assignment, then the row and column cell tents contracted in full f32."""
+    G, D, NB = cfg.descriptor_grid, cfg.descriptor_width, cfg.descriptor_bins
+    B, C, G2 = sgx.shape
+    dev = sgx.device
+    _, wrc, gw = _grid_constants(G, D, cfg.descriptor_samples_per_cell)
+    wrc = torch.from_numpy(wrc).to(dev)
+    gwf = torch.from_numpy(gw.reshape(G2)).to(dev)
+    mag = torch.sqrt(sgx * sgx + sgy * sgy) * gwf           # [B, C, G2]
+    ang = torch.fmod(torch.atan2(sgy, sgx) - theta[..., None], _TWO_PI)
+    ang = torch.where(ang < 0, ang + _TWO_PI, ang)           # floor-mod 2π
+    ob = ang * (NB / _TWO_PI)
+    fl = torch.floor(ob)
+    o0 = fl.to(torch.int64).clamp(0, NB - 1)
+    fo = ob - fl
+    oh0 = torch.nn.functional.one_hot(o0, NB).to(torch.float32)
+    oh1 = torch.nn.functional.one_hot((o0 + 1) % NB, NB).to(torch.float32)
+    mo = (mag * (1.0 - fo))[..., None] * oh0 + (mag * fo)[..., None] * oh1
+    mo = mo.reshape(B, C, G, G, NB)
+    with full_f32():
+        desc = torch.einsum("bkijo,ir,jc->bkrco", mo, wrc, wrc)  # [B, C, D, D, NB]
+    return desc.reshape(B, C, D * D * NB)
+
+
+def _descriptor_chunk(grads: GradStack, y, x, sigma, theta, lvl, cfg: SiftConfig):
+    """Raw descriptors for a chunk of keypoints. y..lvl: [B, C]."""
+    G = cfg.descriptor_grid
+    B, C = y.shape
+    py, px = _sample_coords(y, x, sigma, theta, cfg)
+    inb = (px >= 0) & (px <= grads.w - 1) & (py >= 0) & (py <= grads.h - 1)
+    sgx, sgy = _bilerp(grads, py, px, lvl)
+    sgx = (sgx * inb).reshape(B, C, G * G)
+    sgy = (sgy * inb).reshape(B, C, G * G)
+    return _bin_chunk(sgx, sgy, theta, cfg)
+
+
+def compute_descriptors(grads: GradStack, y, x, sigma, theta, grad_level,
+                        cfg: SiftConfig, chunk: int = 512, sampler=None) -> torch.Tensor:
+    """uint8 descriptors [B, K2, 128] at keypoints y, x, sigma, theta,
+    grad_level [B, K2] (octave-local; grad_level in [1, S]), chunked over
+    keypoints to bound the [B, chunk, G, G, NB] intermediate.  `sampler` is
+    carried for call compatibility and ignored: the device picks the route."""
+    B, K2 = y.shape
+    lvl = grad_level - 1
+    outs = [
+        _descriptor_chunk(grads, y[:, i : i + chunk], x[:, i : i + chunk],
+                          sigma[:, i : i + chunk], theta[:, i : i + chunk],
+                          lvl[:, i : i + chunk], cfg)
+        for i in range(0, K2, chunk)
+    ]
+    raw = torch.cat(outs, dim=1) if outs else y.new_zeros((B, 0, cfg.descriptor_dim))
     return finalize_descriptors(raw, cfg)

@@ -6,6 +6,8 @@ padded buffers with validity masks.  Wherever the reference calls
 `lax.top_k`, the port sorts stably in descending order, so ties resolve to
 the lowest index as they do there; this matters in `assemble_features`,
 where the orientation slots of one keypoint carry the same response.
+
+`extract_features_obo` (-obo) runs the same stages one octave at a time.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from . import detect, fused, orient, pyramid
 __all__ = [
     "Features", "octave_candidates", "prefilter_candidates",
     "assemble_features", "to_image_coords", "extract_features",
+    "extract_features_obo",
 ]
 
 
@@ -144,4 +147,22 @@ def extract_features(images: torch.Tensor, cfg: SiftConfig) -> Features:
     for o, oc in enumerate(pyr):
         cand = octave_candidates(oc, cfg, cfg.octave_cap(o), kp=kps[o])
         parts.append(to_image_coords(cand, cfg, o))
+    return assemble_features(parts, cfg)
+
+
+def extract_features_obo(images: torch.Tensor, cfg: SiftConfig) -> Features:
+    """Octave-by-octave extraction (`GlobalUtil::_ProcessOBO`, -obo): blur
+    chain, detect, orient + describe and the image-coordinate candidates of
+    one octave, then the next octave from its decimated level S; the final
+    top-K over all octaves.  Only one octave's pyramid and gradients are
+    alive at a time.  There is no cross-octave prefilter, which only saves
+    work, so the outputs are identical to `extract_features`'."""
+    base = pyramid.octave0_base(images, cfg)
+    parts = []
+    for o in range(cfg.octaves):
+        oc = pyramid._octave_levels(base, cfg)
+        cand = octave_candidates(oc, cfg, cfg.octave_cap(o))
+        parts.append(to_image_coords(cand, cfg, o))
+        base = pyramid.downsample2x(oc.gauss[:, cfg.dog_levels])
+        del oc
     return assemble_features(parts, cfg)

@@ -1,27 +1,40 @@
-"""Descriptor matching: brute-force best-2 + ratio test + mutual best.
+"""Descriptor matching: brute-force best-2 + ratio test + mutual best, plain
+and guided.
 
-Port of the uint8 path of `siftgpu_tpu/frontend/match.py`.  Similarities
-come from the best-2 reduction of `ops/match_kernel.py` (the CUDA kernel on
-the card — the [N0, N1] similarity never reaches device memory — and the
-dense plain version on CPU); `_finalize` applies the reference's angular
-distmax / ratiomax thresholds and the mutual-best check and compacts the
-surviving rows, in row order, into a fixed `[max_match, 2]` buffer padded
-with -1.
+Port of `siftgpu_tpu/frontend/match.py`.  uint8 sets go through the best-2
+reduction of `ops/match_kernel.py` (the CUDA kernel on the card — the
+[N0, N1] similarity never reaches device memory — and the dense plain
+version on the CPU); guided matching through its H/F-gated variant, whose
+rank-1 gate operands `gate_operands` forms.  Float descriptors take the
+reference's dense route: L2-normalised rows, one f32 matmul (TF32 off) and
+the plain selection, on both devices (the reference computes this path
+outside any Pallas kernel; its blockwise `_match_streaming` selects
+identically and is not ported).  `_finalize` applies the angular distmax /
+ratiomax thresholds and the mutual-best check and compacts the surviving
+rows, in row order, into a fixed `[max_match, 2]` buffer padded with -1.
 
-Float descriptors (the reference's f32 / streaming paths) are not ported:
-the port raises on non-uint8 input.
+Gate operands are formed elementwise in f32 in a fixed order, never with a
+small matmul: a [N, 3] x [3, 3] product on the card would run in TF32
+unless disabled, and its ~1e-3 relative error moves a 3 px gate.  The same
+code serves the kernel and the plain version, so the CPU and the card get
+the same operands.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..core.config import MatchConfig
-from ..ops.match_kernel import match_best2, recip_norms
+from ..ops.match_kernel import best2_dense, gate_matrix, match_best2, match_best2_gated, recip_norms
+from .pyramid import full_f32
 
-__all__ = ["MatchResult", "match_descriptors", "match_descriptors_batch"]
+__all__ = [
+    "MatchResult", "match_descriptors", "match_descriptors_batch",
+    "guided_match_descriptors", "gate_operands", "gate_thresholds",
+]
 
 
 class MatchResult(NamedTuple):
@@ -59,11 +72,35 @@ def _finalize(bsim, ssim, best_j, col_best_i, cfg: MatchConfig) -> MatchResult:
     )
 
 
-def _check_u8(*ds):
-    for d in ds:
-        if d.dtype != torch.uint8:
-            raise NotImplementedError(
-                f"only uint8 descriptors are ported (got {d.dtype})")
+def _is_u8(*ds) -> bool:
+    return all(d.dtype == torch.uint8 for d in ds)
+
+
+def _normalize(d: torch.Tensor) -> torch.Tensor:
+    f = d.to(torch.float32)
+    n = torch.linalg.vector_norm(f, dim=-1, keepdim=True)
+    return f / torch.clamp(n, min=1e-12)
+
+
+def _float_sim(d0, d1) -> torch.Tensor:
+    """Dense cosine similarity of L2-normalised rows, full f32."""
+    with full_f32():
+        return torch.matmul(_normalize(d0), _normalize(d1).transpose(-1, -2))
+
+
+def _select(sim, mask0, mask1, cfg: MatchConfig, keep=None) -> MatchResult:
+    """Fixed-capacity selection from a full similarity matrix [N0, N1] (the
+    reference's `_select`; its `_best2_sim` is `best2_dense`)."""
+    return _finalize(*best2_dense(sim, mask0, mask1, keep), cfg)
+
+
+def _masks(d0, d1, mask0, mask1):
+    lead0, lead1 = d0.shape[:-1], d1.shape[:-1]
+    if mask0 is None:
+        mask0 = torch.ones(lead0, dtype=torch.bool, device=d0.device)
+    if mask1 is None:
+        mask1 = torch.ones(lead1, dtype=torch.bool, device=d1.device)
+    return mask0.contiguous(), mask1.contiguous()
 
 
 def match_descriptors_batch(
@@ -71,23 +108,18 @@ def match_descriptors_batch(
     mask0: Optional[torch.Tensor] = None, mask1: Optional[torch.Tensor] = None,
     cfg: MatchConfig = MatchConfig(),
 ) -> MatchResult:
-    """Pairwise matching of P pairs: d0 [P, N0, 128], d1 [P, N1, 128] uint8
-    -> MatchResult with a leading pair axis.  One reduction launch for all P
-    pairs."""
-    _check_u8(d0, d1)
-    P, N0, _ = d0.shape
-    N1 = d1.shape[1]
-    dev = d0.device
-    if mask0 is None:
-        mask0 = torch.ones((P, N0), dtype=torch.bool, device=dev)
-    if mask1 is None:
-        mask1 = torch.ones((P, N1), dtype=torch.bool, device=dev)
-    d0, d1 = d0.contiguous(), d1.contiguous()
-    # `recip_norms` is the counterpart of the reference's `_u8_parts`: computed
-    # once here, so the kernel and the plain version share the same norms
-    bs, ss, bj, ci = match_best2(d0, d1, recip_norms(d0), recip_norms(d1),
-                                 mask0.contiguous(), mask1.contiguous())
-    res = [_finalize(bs[p], ss[p], bj[p], ci[p], cfg) for p in range(P)]
+    """Pairwise matching of P pairs: d0 [P, N0, 128], d1 [P, N1, 128] (uint8
+    or float) -> MatchResult with a leading pair axis.  One reduction launch
+    for all P pairs."""
+    mask0, mask1 = _masks(d0, d1, mask0, mask1)
+    if _is_u8(d0, d1):
+        d0, d1 = d0.contiguous(), d1.contiguous()
+        # `recip_norms` is the counterpart of the reference's `_u8_parts`:
+        # computed once here, so the kernel and the plain version share them
+        sel = match_best2(d0, d1, recip_norms(d0), recip_norms(d1), mask0, mask1)
+    else:
+        sel = best2_dense(_float_sim(d0, d1), mask0, mask1)
+    res = [_finalize(*(s[p] for s in sel), cfg) for p in range(d0.shape[0])]
     return MatchResult(*(torch.stack(f) for f in zip(*res)))
 
 
@@ -96,10 +128,121 @@ def match_descriptors(
     mask0: Optional[torch.Tensor] = None, mask1: Optional[torch.Tensor] = None,
     cfg: MatchConfig = MatchConfig(),
 ) -> MatchResult:
-    """d0: [N0, 128], d1: [N1, 128] uint8. GetSiftMatch analog."""
+    """d0: [N0, 128], d1: [N1, 128] (uint8 or float). GetSiftMatch analog."""
     res = match_descriptors_batch(
         d0[None], d1[None],
         None if mask0 is None else mask0[None],
         None if mask1 is None else mask1[None], cfg,
     )
     return MatchResult(*(f[0] for f in res))
+
+
+# ---------------- guided matching (GetGuidedSiftMatch) ----------------
+
+def _row3(loc, M, k, transpose=False):
+    """(x, y, 1) · row k of M (column k if `transpose`), elementwise f32:
+    (x·m0 + y·m1) + m2."""
+    m = M[:, k] if transpose else M[k]
+    return (loc[:, 0] * m[0] + loc[:, 1] * m[1]) + m[2]
+
+
+def _h_parts(loc0, H):
+    """Per-row homography operands: loc0 [N0, 2] projected through H -> (px, py)."""
+    z = _row3(loc0, H, 2)
+    den = torch.clamp(z.abs(), min=1e-12)
+    sgn = torch.sign(z)
+    return _row3(loc0, H, 0) / den * sgn, _row3(loc0, H, 1) / den * sgn
+
+
+def _normalized_line(a, b, c):
+    den = torch.clamp(torch.sqrt(a * a + b * b), min=1e-12)
+    return a / den, b / den, c / den
+
+
+def _f_parts_rows(loc0, F):
+    """Per-row epipolar operands: loc0's normalised epiline in image 1
+    (la = F x0 / |la_xy|) plus loc0 itself."""
+    la = _normalized_line(*(_row3(loc0, F, k) for k in range(3)))
+    return (*la, loc0[:, 0], loc0[:, 1])
+
+
+def _f_parts_cols(loc1, F):
+    """Per-column epipolar operands: loc1's normalised epiline in image 0
+    (lb = F^T x1 / |lb_xy|)."""
+    return _normalized_line(*(_row3(loc1, F, k, transpose=True) for k in range(3)))
+
+
+def gate_operands(loc0, loc1, H=None, F=None):
+    """The gated kernel's operands (`_fused_guided`'s layout): gate in
+    {"h", "f", "hf"}, rows [R, N0] and cols [C, N1] f32 (see
+    `ops.match_kernel.gate_matrix`).  loc0 [N0, 2], loc1 [N1, 2], H, F
+    [3, 3] f32 on one device."""
+    loc0, loc1 = loc0.to(torch.float32), loc1.to(torch.float32)
+    gate, rows = "", []
+    if H is not None:
+        gate += "h"
+        rows += list(_h_parts(loc0, H.to(torch.float32)))
+    if F is not None:
+        gate += "f"
+        rows += list(_f_parts_rows(loc0, F.to(torch.float32)))
+    cols = [loc1[:, 0], loc1[:, 1]]
+    if F is not None:
+        cols += list(_f_parts_cols(loc1, F.to(torch.float32)))
+    return gate, torch.stack(rows), torch.stack(cols)
+
+
+def gate_thresholds(hdist_max: float, fdist_max: float):
+    """(h2, fthr): the squared reprojection threshold, squared in double and
+    rounded once to f32, and the epipolar threshold in f32 — the values the
+    reference compares against."""
+    return (float(np.float32(float(hdist_max) * float(hdist_max))),
+            float(np.float32(fdist_max)))
+
+
+def _homography_gate(loc0, loc1, H, hdist_max):
+    """Squared reprojection gate |H x0 - x1|^2 < hdist_max^2 -> [N0, N1] bool."""
+    gate, rows, cols = gate_operands(loc0, loc1, H=H)
+    return gate_matrix(gate, rows[None], cols[None], *gate_thresholds(hdist_max, 0.0))[0]
+
+
+def _epipolar_gate(loc0, loc1, F, fdist_max):
+    """Symmetric epipolar-distance gate via F -> [N0, N1] bool."""
+    gate, rows, cols = gate_operands(loc0, loc1, F=F)
+    return gate_matrix(gate, rows[None], cols[None], *gate_thresholds(0.0, fdist_max))[0]
+
+
+def _fused_guided(d0, d1, loc0, loc1, H, F, mask0, mask1,
+                  hdist_max, fdist_max, cfg: MatchConfig) -> MatchResult:
+    """uint8 guided matching through the gated reduction: the gates are
+    folded into the validity of each pair before the best-2 selection."""
+    gate, rows, cols = gate_operands(loc0, loc1, H, F)
+    d0, d1 = d0.contiguous(), d1.contiguous()
+    sel = match_best2_gated(
+        d0[None], d1[None], recip_norms(d0)[None], recip_norms(d1)[None],
+        mask0[None], mask1[None], gate, rows[None].contiguous(), cols[None].contiguous(),
+        *gate_thresholds(hdist_max, fdist_max))
+    return _finalize(*(s[0] for s in sel), cfg)
+
+
+def guided_match_descriptors(
+    d0, d1, loc0, loc1, H=None, F=None,
+    mask0: Optional[torch.Tensor] = None, mask1: Optional[torch.Tensor] = None,
+    hdist_max: float = 32.0, fdist_max: float = 16.0,
+    cfg: MatchConfig = MatchConfig(),
+) -> MatchResult:
+    """GetGuidedSiftMatch analog: pairs gated by the reprojection distance
+    through H (< hdist_max px) and/or the symmetric epipolar distance
+    through F (< fdist_max px) before the best-2 selection.  d0 [N0, 128],
+    d1 [N1, 128]; loc0 [N0, 2], loc1 [N1, 2] (x, y); H, F [3, 3] f32
+    tensors on the descriptors' device.  Without H and F it is
+    `match_descriptors`."""
+    if H is None and F is None:
+        return match_descriptors(d0, d1, mask0, mask1, cfg)
+    mask0, mask1 = _masks(d0, d1, mask0, mask1)
+    if _is_u8(d0, d1):
+        return _fused_guided(d0, d1, loc0, loc1, H, F, mask0, mask1,
+                             hdist_max, fdist_max, cfg)
+    gate, rows, cols = gate_operands(loc0, loc1, H, F)
+    keep = gate_matrix(gate, rows[None], cols[None],
+                       *gate_thresholds(hdist_max, fdist_max))[0]
+    return _select(_float_sim(d0, d1), mask0, mask1, cfg, keep)

@@ -4,6 +4,8 @@ Port of `siftgpu_tpu/frontend/pyramid.py` on its convolution route
 (`_conv1d`): each blur is a plain f32 separable convolution with replicate
 edges on every device — the TPU's banded-matmul route has no counterpart
 here.  Octave o+1 is seeded by top-left 2x decimation of Gaussian level S.
+`first_octave = -1` upsamples the input 2x bilinearly (`upsample2x`) before
+the initial blur.
 
 Precision: a float32 convolution on the card defaults to TF32 in cuDNN,
 whose ~1e-3 error is of the order of the DoG contrast threshold (6.7e-3).
@@ -22,7 +24,10 @@ import torch.nn.functional as F
 
 from ..core.config import SiftConfig
 
-__all__ = ["Octave", "blur_separable", "downsample2x", "build_pyramid", "full_f32"]
+__all__ = [
+    "Octave", "blur_separable", "downsample2x", "upsample2x", "octave0_base",
+    "build_pyramid", "full_f32",
+]
 
 
 class Octave(NamedTuple):
@@ -60,6 +65,26 @@ def downsample2x(x: torch.Tensor) -> torch.Tensor:
     return x[:, ::2, ::2].contiguous()
 
 
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Bilinear 2x upsample of [B, H, W] with half-pixel centres and clamped
+    edges: the reference's `jax.image.resize(..., "linear")` (which, for an
+    upscale, is the same triangle filter with renormalised edge weights)."""
+    return F.interpolate(x[:, None], scale_factor=2, mode="bilinear",
+                         align_corners=False)[:, 0]
+
+
+def octave0_base(images: torch.Tensor, cfg: SiftConfig) -> torch.Tensor:
+    """Input conditioning (-fo: 2x upsample or n decimations) and the initial
+    blur -> octave 0's Gaussian level 0, [B, H0, W0] f32."""
+    x = images.to(torch.float32)
+    if cfg.upsampled:
+        x = upsample2x(x)
+    else:
+        for _ in range(cfg.first_octave):
+            x = downsample2x(x)
+    return blur_separable(x, cfg.gaussian_taps(cfg.initial_blur_sigma()))
+
+
 def _octave_levels(base: torch.Tensor, cfg: SiftConfig) -> Octave:
     levels = [base]
     for s in cfg.incremental_sigmas():
@@ -72,12 +97,7 @@ def _octave_levels(base: torch.Tensor, cfg: SiftConfig) -> Octave:
 def build_pyramid(images: torch.Tensor, cfg: SiftConfig) -> Tuple[Octave, ...]:
     """images: [B, H, W] grayscale in [0, 1] on any device. Returns the
     per-octave (gauss, dog) on the same device."""
-    if cfg.upsampled:
-        raise NotImplementedError("first_octave = -1 (2x upsampling) is not ported yet")
-    x = images.to(torch.float32)
-    for _ in range(cfg.first_octave):
-        x = downsample2x(x)
-    base = blur_separable(x, cfg.gaussian_taps(cfg.initial_blur_sigma()))
+    base = octave0_base(images, cfg)
     octaves: List[Octave] = []
     for _ in range(cfg.octaves):
         oc = _octave_levels(base, cfg)

@@ -3,9 +3,11 @@
 Each kernel source is compiled by `nvcc` for `sm_90a` into a shared library
 with a plain C interface and loaded with `ctypes` — no PyTorch headers, so a
 build takes seconds.  Libraries go to `siftgpu_tpu_torch/_build/` (listed in
-`.gitignore`), named by a hash of the sources and flags: a changed source
-rebuilds, an unchanged one loads.  The build happens at a kernel's first
-launch, never at import.
+`.gitignore`), named by the source and a hash of the sources and flags: a
+changed source rebuilds, an unchanged one loads, and kernels that share a
+source file (the ungated and gated `match_best2`) share its library.  The
+build happens at a kernel's first launch, never at import; `build_all`
+compiles every library at once, one nvcc per library, in parallel.
 
 There is no fallback: without `nvcc`, or when the build fails, `Kernel.lib`
 raises.  The plain PyTorch versions run only for CPU tensors, chosen by the
@@ -20,11 +22,13 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "KERNELS", "BUILD_DIR", "CSRC", "find_nvcc", "check_tensor"]
+__all__ = ["Kernel", "KERNELS", "BUILD_DIR", "CSRC", "find_nvcc", "check_tensor", "build_all"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -88,12 +92,13 @@ class Kernel:
         return [self.source] + sorted(CSRC.glob("*.cuh"))
 
     def lib_path(self, nvcc: str) -> Path:
+        """The library file: source stem + hash of sources, nvcc and flags."""
         h = hashlib.sha256()
         for p in self._sources():
             h.update(p.name.encode())
             h.update(p.read_bytes())
         h.update(" ".join([nvcc] + _ARCH + _FLAGS + self.flags).encode())
-        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def build(self) -> Path:
         """Compile the source if no library of its current hash exists."""
@@ -144,3 +149,26 @@ class Kernel:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def build_all() -> dict:
+    """Compile the libraries of every registered kernel at once — one nvcc
+    per distinct library, all started together — then load each kernel.
+    Returns {library file name: (seconds, nvcc output)}; raises if a build
+    fails."""
+    nvcc = find_nvcc()
+    first: dict = {}
+    for kern in KERNELS.values():
+        first.setdefault(kern.lib_path(nvcc), kern)
+
+    def one(kern):
+        t0 = time.perf_counter()
+        kern.build()
+        return time.perf_counter() - t0, kern.build_log or ""
+
+    with ThreadPoolExecutor(max_workers=len(first)) as ex:
+        futs = {path.name: ex.submit(one, kern) for path, kern in first.items()}
+        out = {name: f.result() for name, f in futs.items()}
+    for kern in KERNELS.values():
+        kern.lib()
+    return out

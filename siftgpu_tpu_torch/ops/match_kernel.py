@@ -1,7 +1,9 @@
-"""Best-2 descriptor match reduction: CUDA kernel + plain version.
+"""Best-2 descriptor match reduction, ungated and H/F-gated: CUDA kernel +
+plain version.
 
-Replaces `siftgpu_tpu/ops/match_kernel.py::match_best2` (Pallas), ungated.
-For uint8 descriptor sets d0 [P, N0, 128] and d1 [P, N1, 128] (P pairs):
+Replaces `siftgpu_tpu/ops/match_kernel.py::match_best2` (Pallas), with and
+without its guided gates.  For uint8 descriptor sets d0 [P, N0, 128] and
+d1 [P, N1, 128] (P pairs):
 
     sim[i, j] = (dot(d0[i], d1[j]) * rn1[j]) * rn0[i]    (-inf where masked)
 
@@ -12,8 +14,16 @@ values < 2^24), so with the same `rn0`/`rn1` the kernel
 (`csrc/match_best2.cu`) and the plain version return identical selections
 and bit-identical similarities.
 
-`match_best2(...)` takes the plain version for CPU tensors and the kernel
-for CUDA tensors.  The H/F-gated variant (guided matching) is not ported yet.
+The gated variant (`match_best2_gated`, guided matching) also masks every
+pair that fails the reprojection gate ("h") and/or the symmetric epipolar
+gate ("f"), computed from rank-1 operands (`gate_matrix` states the
+expressions and the operand layout).  The kernel forms the gate sums with
+round-to-nearest intrinsics that are never contracted into FMAs, so it too
+is bit-identical to its plain version.  It has its own launch counter
+(`GATED`), on the same library as the ungated kernel.
+
+`match_best2(...)` / `match_best2_gated(...)` take the plain version for CPU
+tensors and the kernel for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -25,13 +35,26 @@ import torch
 from . import _build
 from ..frontend.pyramid import full_f32
 
-__all__ = ["match_best2", "match_best2_plain", "recip_norms", "KERNEL"]
+__all__ = [
+    "match_best2", "match_best2_plain", "match_best2_gated",
+    "match_best2_gated_plain", "best2_dense", "gate_matrix", "recip_norms",
+    "KERNEL", "GATED",
+]
 
 KERNEL = _build.Kernel(
     "match_best2", "match_best2.cu",
     {"match_best2_launch": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
      + [ctypes.c_void_p]},
 )
+GATED = _build.Kernel(
+    "match_best2_gated", "match_best2.cu",
+    {"match_best2_gated_launch": [ctypes.c_void_p] * 8 + [ctypes.c_float] * 2
+     + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]},
+)
+
+_GATE_CODE = {"h": 1, "f": 2, "hf": 3}
+_GATE_ROWS = {"h": 2, "f": 5, "hf": 7}
+_GATE_COLS = {"h": 2, "f": 5, "hf": 5}
 
 
 def recip_norms(d: torch.Tensor) -> torch.Tensor:
@@ -45,12 +68,15 @@ def recip_norms(d: torch.Tensor) -> torch.Tensor:
     return (1.0 / torch.sqrt(torch.clamp(sq, min=1e-24))).to(torch.float32)
 
 
-def match_best2_plain(d0, d1, rn0, rn1, m0, m1):
-    """Plain PyTorch version: the dense similarity matrix and its argmaxes."""
-    with full_f32():
-        dot = torch.matmul(d0.to(torch.float32), d1.to(torch.float32).transpose(-1, -2))
-    sim = (dot * rn1[..., None, :]) * rn0[..., :, None]
-    sim = torch.where(m0[..., :, None] & m1[..., None, :], sim, float("-inf"))
+def best2_dense(sim, m0, m1, keep=None):
+    """The selection on a dense similarity sim [..., N0, N1]: pairs outside
+    the masks m0 [..., N0], m1 [..., N1] (and, if given, outside `keep`
+    [..., N0, N1]) are -inf; returns (bsim, ssim [..., N0] f32, bestj
+    [..., N0] int32, col_best_i [..., N1] int32), ties to the lowest index."""
+    valid = m0[..., :, None] & m1[..., None, :]
+    if keep is not None:
+        valid = valid & keep
+    sim = torch.where(valid, sim, float("-inf"))
     best_j = torch.argmax(sim, dim=-1)
     bsim = torch.amax(sim, dim=-1)
     cols = torch.arange(sim.shape[-1], device=sim.device)
@@ -59,7 +85,55 @@ def match_best2_plain(d0, d1, rn0, rn1, m0, m1):
     return bsim, ssim, best_j.to(torch.int32), col_best_i.to(torch.int32)
 
 
-def _match_best2_cuda(d0, d1, rn0, rn1, m0, m1):
+def _u8_sim(d0, d1, rn0, rn1):
+    with full_f32():
+        dot = torch.matmul(d0.to(torch.float32), d1.to(torch.float32).transpose(-1, -2))
+    return (dot * rn1[..., None, :]) * rn0[..., :, None]
+
+
+def match_best2_plain(d0, d1, rn0, rn1, m0, m1):
+    """Plain PyTorch version: the dense similarity matrix and its argmaxes."""
+    return best2_dense(_u8_sim(d0, d1, rn0, rn1), m0, m1)
+
+
+def gate_matrix(gate: str, rows, cols, h2: float, fthr: float) -> torch.Tensor:
+    """Dense guided gate [P, N0, N1] bool from rank-1 operands.
+
+    rows [P, R, N0] f32: "h" -> [px, py] (loc0 projected through H); "f" ->
+    [la_x, la_y, la_z, x0x, x0y] (loc0's normalised epiline in image 1, then
+    loc0); "hf" -> both, H first.  cols [P, C, N1] f32: [x1, y1], then for
+    "f" [lb_x, lb_y, lb_z] (loc1's normalised epiline in image 0).
+
+        h:  dx = px - x1; dy = py - y1;  dx*dx + dy*dy < h2
+        f:  max(|la_x*x1 + la_y*y1 + la_z|, |x0x*lb_x + x0y*lb_y + lb_z|) < fthr
+
+    h2 is the squared reprojection threshold rounded to f32 and fthr the
+    epipolar threshold in f32 (`frontend/match.py::gate_thresholds`)."""
+    x1, y1 = cols[:, 0, None, :], cols[:, 1, None, :]
+    keep = None
+    k = 0
+    if "h" in gate:
+        dx = rows[:, 0, :, None] - x1
+        dy = rows[:, 1, :, None] - y1
+        keep = dx * dx + dy * dy < h2
+        k = 2
+    if "f" in gate:
+        la_x, la_y, la_z, x0x, x0y = (rows[:, k + i, :, None] for i in range(5))
+        lb_x, lb_y, lb_z = (cols[:, 2 + i, None, :] for i in range(3))
+        da = (la_x * x1 + la_y * y1 + la_z).abs()
+        db = (x0x * lb_x + x0y * lb_y + lb_z).abs()
+        f = torch.maximum(da, db) < fthr
+        keep = f if keep is None else keep & f
+    return keep
+
+
+def match_best2_gated_plain(d0, d1, rn0, rn1, m0, m1, gate, rows, cols, h2, fthr):
+    """Plain PyTorch version of the gated reduction."""
+    return best2_dense(_u8_sim(d0, d1, rn0, rn1), m0, m1,
+                       gate_matrix(gate, rows, cols, h2, fthr))
+
+
+def _check_match_args(d0, d1, rn0, rn1, m0, m1):
     P, N0, D = d0.shape
     N1 = d1.shape[1]
     _build.check_tensor(d0, "d0", torch.uint8, 3)
@@ -74,16 +148,42 @@ def _match_best2_cuda(d0, d1, rn0, rn1, m0, m1):
         _build.check_tensor(t, name, dt, 2)
         if tuple(t.shape) != (P, n):
             raise ValueError(f"{name}: expected shape {(P, n)}, got {tuple(t.shape)}")
-    dev = d0.device
-    bsim = torch.empty((P, N0), dtype=torch.float32, device=dev)
-    ssim = torch.empty((P, N0), dtype=torch.float32, device=dev)
-    bestj = torch.empty((P, N0), dtype=torch.int32, device=dev)
-    colb = torch.empty((P, N1), dtype=torch.int32, device=dev)
-    colkey = torch.zeros((P, N1), dtype=torch.int64, device=dev)   # scratch
+    return P, N0, N1
+
+
+def _outputs(P, N0, N1, dev):
+    return (torch.empty((P, N0), dtype=torch.float32, device=dev),
+            torch.empty((P, N0), dtype=torch.float32, device=dev),
+            torch.empty((P, N0), dtype=torch.int32, device=dev),
+            torch.empty((P, N1), dtype=torch.int32, device=dev),
+            torch.zeros((P, N1), dtype=torch.int64, device=dev))   # colkey scratch
+
+
+def _match_best2_cuda(d0, d1, rn0, rn1, m0, m1):
+    P, N0, N1 = _check_match_args(d0, d1, rn0, rn1, m0, m1)
+    bsim, ssim, bestj, colb, colkey = _outputs(P, N0, N1, d0.device)
     p = _build.ptr
-    KERNEL.launch("match_best2_launch", dev,
+    KERNEL.launch("match_best2_launch", d0.device,
                   p(d0), p(d1), p(rn0), p(rn1), p(m0), p(m1),
                   p(bsim), p(ssim), p(bestj), p(colb), p(colkey), P, N0, N1)
+    return bsim, ssim, bestj, colb
+
+
+def _match_best2_gated_cuda(d0, d1, rn0, rn1, m0, m1, gate, rows, cols, h2, fthr):
+    P, N0, N1 = _check_match_args(d0, d1, rn0, rn1, m0, m1)
+    if gate not in _GATE_CODE:
+        raise ValueError(f"gate must be one of {sorted(_GATE_CODE)}, got {gate!r}")
+    _build.check_tensor(rows, "rows", torch.float32, 3)
+    _build.check_tensor(cols, "cols", torch.float32, 3)
+    if tuple(rows.shape) != (P, _GATE_ROWS[gate], N0) or tuple(cols.shape) != (P, _GATE_COLS[gate], N1):
+        raise ValueError(f"gate {gate!r}: rows {tuple(rows.shape)} / cols {tuple(cols.shape)} "
+                         f"must be {(P, _GATE_ROWS[gate], N0)} / {(P, _GATE_COLS[gate], N1)}")
+    bsim, ssim, bestj, colb, colkey = _outputs(P, N0, N1, d0.device)
+    p = _build.ptr
+    GATED.launch("match_best2_gated_launch", d0.device,
+                 p(d0), p(d1), p(rn0), p(rn1), p(m0), p(m1), p(rows), p(cols),
+                 float(h2), float(fthr), p(bsim), p(ssim), p(bestj), p(colb), p(colkey),
+                 P, N0, N1, _GATE_CODE[gate])
     return bsim, ssim, bestj, colb
 
 
@@ -94,3 +194,13 @@ def match_best2(d0, d1, rn0, rn1, m0, m1):
     if d0.device.type == "cpu":
         return match_best2_plain(d0, d1, rn0, rn1, m0, m1)
     return _match_best2_cuda(d0, d1, rn0, rn1, m0, m1)
+
+
+def match_best2_gated(d0, d1, rn0, rn1, m0, m1, gate: str, rows, cols,
+                      h2: float, fthr: float):
+    """`match_best2` with every pair also gated: gate in {"h", "f", "hf"},
+    rows [P, R, N0] and cols [P, C, N1] f32 operands and the f32 thresholds
+    h2, fthr as `gate_matrix` states them."""
+    if d0.device.type == "cpu":
+        return match_best2_gated_plain(d0, d1, rn0, rn1, m0, m1, gate, rows, cols, h2, fthr)
+    return _match_best2_gated_cuda(d0, d1, rn0, rn1, m0, m1, gate, rows, cols, h2, fthr)

@@ -61,8 +61,9 @@ def case(request):
     return _run(request.param)
 
 
-def test_features_match_reference(case):
-    ref, got = case
+def check_features(ref, got):
+    """The extract budgets, image by image: the reference's Features `ref`
+    against the port's `got`."""
     assert got.desc.dtype == torch.uint8 and tuple(got.desc.shape) == ref.desc.shape
     for i in range(ref.mask.shape[0]):
         r = features_to_numpy(type(ref)(*(np.asarray(f)[i:i + 1] for f in ref)))
@@ -79,6 +80,10 @@ def test_features_match_reference(case):
         assert cos.min() > 0.995
         sd = np.array([abs(r["sigma"][a] - g["sigma"][b]) for a, b in pairs])
         assert sd.max() < 1e-2
+
+
+def test_features_match_reference(case):
+    check_features(*case)
 
 
 def test_masked_rows_are_padding(case):

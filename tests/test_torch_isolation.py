@@ -10,8 +10,11 @@ import pytest
 import torch
 
 from siftgpu_tpu_torch.core.config import SiftConfig
-from siftgpu_tpu_torch.ops import _build, detect_scores, grad_stencil, kp_engine, match_kernel
+from siftgpu_tpu_torch.ops import (_build, desc_sampler, detect_scores, grad_stencil, kp_engine,
+                                   match_kernel)
 
+KERNEL_NAMES = ["detect_scores", "grad_stencil", "orient_sample", "match_best2",
+                "match_best2_gated", "sample_gradients"]
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -22,9 +25,13 @@ def test_imports_without_jax_or_reference():
             sys.modules[name] = None          # any import of them now fails
         import siftgpu_tpu_torch
         from siftgpu_tpu_torch import convert
-        from siftgpu_tpu_torch.frontend import describe, detect, extract, fused, match, orient, pyramid
-        from siftgpu_tpu_torch.ops import _build, detect_scores, grad_stencil, kp_engine, match_kernel
+        from siftgpu_tpu_torch.core import config, flags, image, scalespace
+        from siftgpu_tpu_torch.frontend import (describe, detect, extract, fused, match, orient,
+                                                pyramid, redetect)
+        from siftgpu_tpu_torch.ops import (_build, desc_sampler, detect_scores, grad_stencil,
+                                           kp_engine, match_kernel)
         from siftgpu_tpu_torch.oracle import fixtures
+        from siftgpu_tpu_torch.pipeline import api, siftio
         assert not any(m == "jax" or m.startswith(("jax.", "siftgpu_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print(sorted(_build.KERNELS))
@@ -32,8 +39,7 @@ def test_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == str(sorted(
-        ["detect_scores", "grad_stencil", "orient_sample", "match_best2"]))
+    assert out.stdout.strip() == str(sorted(KERNEL_NAMES))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -48,7 +54,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         assert kern.launches == before
 
 
-@pytest.mark.parametrize("name", ["detect_scores", "grad_stencil", "orient_sample", "match_best2"])
+@pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_non_cpu_tensor_never_takes_the_plain_version(name):
     """A tensor that is not on the CPU goes to the kernel route, whose checks
     refuse anything but a CUDA tensor: no silent plain fallback."""
@@ -64,6 +70,13 @@ def test_non_cpu_tensor_never_takes_the_plain_version(name):
         "match_best2": lambda: match_kernel.match_best2(
             meta(1, 8, 128, dt=torch.uint8), meta(1, 8, 128, dt=torch.uint8),
             meta(1, 8), meta(1, 8), meta(1, 8, dt=torch.bool), meta(1, 8, dt=torch.bool)),
+        "match_best2_gated": lambda: match_kernel.match_best2_gated(
+            meta(1, 8, 128, dt=torch.uint8), meta(1, 8, 128, dt=torch.uint8),
+            meta(1, 8), meta(1, 8), meta(1, 8, dt=torch.bool), meta(1, 8, dt=torch.bool),
+            "hf", meta(1, 7, 8), meta(1, 5, 8), 9.0, 2.0),
+        "sample_gradients": lambda: desc_sampler.sample_gradients(
+            meta(3, 35, 35, dt=torch.bfloat16), meta(3, 35, 35, dt=torch.bfloat16),
+            meta(4, dt=torch.int32), meta(4, 256), meta(4, 256)),
     }
     with pytest.raises(ValueError, match="CUDA tensor"):
         calls[name]()

@@ -1,5 +1,5 @@
-"""Port matcher vs the reference on the same uint8 sets (the cases of
-tests/test_match.py): pairs and count identical.
+"""Port matcher vs the reference on the same uint8 and float sets (the
+cases of tests/test_match.py): pairs and count identical.
 
 `dist` is arccos of the winner similarity.  The reference forms similarities
 with `lax.rsqrt`, the port with `torch.rsqrt`, which differ in the last ulp,
@@ -41,12 +41,12 @@ def _parity_sets():
     return d0, d1
 
 
-def _check(res, ref):
+def _check(res, ref, sim_ulps=2):
     np.testing.assert_array_equal(res.pairs.numpy(), np.asarray(ref.pairs))
     assert int(res.count) == int(ref.count)
     rd, jd = res.dist.numpy().astype(np.float64), np.asarray(ref.dist).astype(np.float64)
     ulp_sim = np.spacing(np.cos(jd).astype(np.float32)).astype(np.float64)
-    budget = 1e-6 + 2 * ulp_sim / np.maximum(np.sin(jd), 1e-3)
+    budget = 1e-6 + sim_ulps * ulp_sim / np.maximum(np.sin(jd), 1e-3)
     assert (np.abs(rd - jd) <= budget).all()
 
 
@@ -121,6 +121,23 @@ def test_best2_reduction_matches_reference_similarities():
     assert _ulps(ss[0].numpy(), js).max() <= 2
 
 
-def test_non_uint8_is_refused():
-    with pytest.raises(NotImplementedError):
-        match.match_descriptors(torch.zeros(4, 128), torch.zeros(4, 128))
+@pytest.mark.parametrize("kw", CFGS, ids=str)
+def test_float_descriptors_match_reference(kw):
+    """Float descriptors take the dense f32 route (L2-normalised rows, one
+    f32 matmul): pairs and count identical to the reference's; the rows are
+    normalised and the dots summed in another order, so `dist` is held to
+    1e-6 plus 16 ulp of the similarity through arccos."""
+    d0, d1 = _parity_sets()
+    d0, d1 = d0.astype(np.float32) / 512, d1.astype(np.float32) / 512
+    ref = jmatch.match_descriptors(jnp.asarray(d0), jnp.asarray(d1), cfg=JMatch(**kw))
+    res = match.match_descriptors(torch.from_numpy(d0), torch.from_numpy(d1), cfg=MatchConfig(**kw))
+    _check(res, ref, sim_ulps=16)
+    assert int(res.count) > (30 if kw.get("max_match", 256) < 100 else 60)
+    # the batch entry point takes the same route, masks included
+    m0 = np.ones((1, 100), bool)
+    m0[0, ::5] = False
+    refb = jmatch.match_descriptors_batch(jnp.asarray(d0[None]), jnp.asarray(d1[None]),
+                                          jnp.asarray(m0), None, JMatch(**kw))
+    resb = match.match_descriptors_batch(torch.from_numpy(d0[None]), torch.from_numpy(d1[None]),
+                                         torch.from_numpy(m0), None, MatchConfig(**kw))
+    _check(type(resb)(*(f[0] for f in resb)), type(refb)(*(f[0] for f in refb)), sim_ulps=16)
