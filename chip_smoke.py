@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on 480x640 frames related by known shifts
-(K = 2048): the main path — `extract_features` on four frames, then
-`match_descriptors_batch` on the three consecutive pairs — and the
-SiftGPU-style facade path — `SiftTPU.run_sift` on two frames,
+Drives the port's three paths at 480x640 (K = 2048): the main path —
+`extract_features` on four frames related by known shifts, then
+`match_descriptors_batch` on the three consecutive pairs; the SiftGPU-style
+facade path — `SiftTPU.run_sift` on two frames,
 `SiftMatchTPU.get_sift_match` / `get_guided_sift_match` (H, F, both) on
 4096-padded sets, descriptor-only mode (`set_keypoint_list` +
-`run_sift_with_keypoints`), `-obo` and `-fo -1`.  It checks them:
+`run_sift_with_keypoints`), `-obo` and `-fo -1`; and the two-view SfM path
+(BASELINE config 4) — `two_view_reconstruct` on a calibrated two-plane
+stereo pair: extract, match, 512-hypothesis RANSAC for E, pose, 10 LM x 30
+CG steps of BA.  It checks them:
 
   1. device: a CUDA card is required (exit 1 otherwise); prints
      `nvidia-smi --query-gpu=name,power.limit` ;
@@ -20,7 +23,10 @@ SiftGPU-style facade path — `SiftTPU.run_sift` on two frames,
      inputs taken from real runs of its path (the facade's kernels on the
      calls that path makes, recorded), at the path's shapes, then at edge
      shapes (odd sizes, a flat image, masks, exact ties, grids that leave
-     the image, rows fully gated out, near-vertical epilines);
+     the image, rows fully gated out, near-vertical epilines); the octave
+     kernel on the 5 main-path octave bases, 33x47, 150x200 (B = 2), a plane
+     smaller than its 43 px halo and a flat image, within 1e-5, and every
+     frame of a batch bit-identical to the frame run alone;
   4. main path: launch counters reset to 0, one extract + match, every
      main-path kernel must have launched; >= 90% known-shift inliers per
      pair; frame 0 on the CPU must pair >= 99% of its keypoints with the
@@ -31,8 +37,16 @@ SiftGPU-style facade path — `SiftTPU.run_sift` on two frames,
      descriptors against the full pipeline's (cosine min > 0.95, mean >
      0.99) and within 1 step of the CPU's; -obo identical to the default
      extraction; -fo -1 pairing >= 99% of its keypoints with the CPU's;
-  5. times (CUDA events): extract and match per batch, the facade calls, and
-     each kernel against its plain version at its path's shapes.
+  4c. two-view path: launch counters reset to 0, `two_view_reconstruct`;
+     kernels 1-4 and the octave kernel must have launched; the ground-truth
+     bounds of tests/test_twoview.py (matches > 100, inliers > 50%,
+     rotation < 0.01 rad, translation direction < 0.02, RMS < 0.75 px,
+     > 80% of points in the two depth bands); the same RANSAC draws through
+     the port on the CPU give a rotation within 1e-3 rad of the card's;
+  5. times (CUDA events): extract and match per batch, the facade calls, the
+     whole pyramid with the octave kernel and with the cuDNN chain, the
+     two-view stages, and each kernel against its plain version at its
+     path's shapes (the octave kernel per octave as well).
 
 Any failed check raises.  The last three lines are the card's name and
 power limit, one JSON object with a record per kernel, and
@@ -58,9 +72,14 @@ REPLACES = {
     "match_best2": "siftgpu_tpu/ops/match_kernel.py:230",
     "match_best2_gated": "siftgpu_tpu/ops/match_kernel.py:82",
     "sample_gradients": "siftgpu_tpu/ops/desc_sampler.py:102",
+    "blur_octave_fused": "siftgpu_tpu/ops/pyramid_kernel.py:305",
 }
-MAIN_KERNELS = ("detect_scores", "grad_stencil", "orient_sample", "match_best2")
+MAIN_KERNELS = ("detect_scores", "grad_stencil", "orient_sample", "match_best2",
+                "blur_octave_fused")
 FACADE_KERNELS = ("match_best2_gated", "sample_gradients")
+RVEC = np.array([0.01, -0.03, 0.005])   # tests/test_twoview.py's pose of camera 1
+T_GT = np.array([-0.4, 0.05, 0.02])
+OCTAVE_TOL = 1e-5                       # tests/test_pyramid_kernel.py's fused-vs-chain bound
 
 
 def log(msg: str) -> None:
@@ -259,6 +278,22 @@ class Parity:
         self.note("sample_gradients", 0.0, lambda: dsm.sample_gradients(*args),
                   lambda: dsm.sample_gradients_plain(*args), timed)
 
+    def octave(self, base, taps, label, timed=True):
+        from siftgpu_tpu_torch.ops import pyramid_kernel as pk
+
+        got = pk.blur_octave_fused(base, taps)
+        self.sync()
+        ref = pk.blur_octave_fused_plain(base, taps)
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        if not err < OCTAVE_TOL:
+            raise AssertionError(f"blur_octave_fused ({label}, {tuple(base.shape)}): "
+                                 f"max abs err {err}")
+        if not torch_equal_bits(got[0][:, 0], base):
+            raise AssertionError(f"blur_octave_fused ({label}): level 0 is not the base")
+        self.note("blur_octave_fused", err, lambda: pk.blur_octave_fused(base, taps),
+                  lambda: pk.blur_octave_fused_plain(base, taps), timed)
+        return err
+
     def gated(self, args, label, timed=True):
         import torch
 
@@ -278,13 +313,17 @@ class Parity:
 
 
 @contextlib.contextmanager
-def recording(module, name: str, calls: list):
-    """Record the positional arguments of every call of `module.name`."""
+def recording(module, name: str, calls: list, results: list | None = None):
+    """Record the positional arguments of every call of `module.name` (and
+    its return values in `results`, if given)."""
     orig = getattr(module, name)
 
     def rec(*args):
         calls.append(args)
-        return orig(*args)
+        out = orig(*args)
+        if results is not None:
+            results.append(out)
+        return out
 
     setattr(module, name, rec)
     try:
@@ -305,6 +344,21 @@ def torch_equal_bits(a, b) -> bool:
     return bool((a == b).all())
 
 
+def octave_batch_independence(base, taps, label: str) -> None:
+    """Each frame of the octave kernel's batch is bit-identical to the frame
+    run alone.  A property of the kernel: a CPU rehearsal (plain chain,
+    whose convolutions vary their order with the shape) does not check it."""
+    from siftgpu_tpu_torch.ops import pyramid_kernel as pk
+
+    if base.device.type != "cuda":
+        return
+    both = pk.blur_octave_fused(base, taps)
+    for b in range(base.shape[0]):
+        one = pk.blur_octave_fused(base[b : b + 1].contiguous(), taps)
+        if not all(torch_equal_bits(x[b], y[0]) for x, y in zip(both, one)):
+            raise AssertionError(f"blur_octave_fused ({label}): frame {b} depends on its batch")
+
+
 def edge_cases(dev, sync):
     """Kernel-vs-plain checks off the main path's shapes: odd image sizes,
     keypoints at the borders, a flat image with no keypoints, set sizes that
@@ -321,7 +375,11 @@ def edge_cases(dev, sync):
         imgs = np.full((2, h, w), 0.5, np.float32) if flat else np.stack(
             [fixtures.random_texture(h, w, seed=s) for s in (1, 2)])
         par = Parity(cfg, sync)
-        pyr = pyramid.build_pyramid(torch.from_numpy(imgs).to(dev), cfg)
+        bases = []
+        with recording(pyramid, "blur_octave_fused", bases):
+            pyr = pyramid.build_pyramid(torch.from_numpy(imgs).to(dev), cfg)
+        for base, taps in bases:
+            par.octave(base, taps, f"edge {h}x{w}", timed=False)
         for oc in pyr:
             par.detect(oc.dog)
             par.grad(oc.gauss)
@@ -331,7 +389,22 @@ def edge_cases(dev, sync):
             if flat:  # make every (degenerate, border) slot live: empty histograms
                 kp = kp._replace(mask=torch.ones_like(kp.mask))
             par.orient(orient.gradient_stack(oc.gauss, cfg), kp)
-        log(f"  edge case {h}x{w}{' flat' if flat else ''}: detect, grad, orient match the plain versions")
+        log(f"  edge case {h}x{w}{' flat' if flat else ''}: octaves, detect, grad, orient match "
+            "the plain versions")
+
+    # the octave kernel: odd sizes, a tail of rows, a plane smaller than the
+    # cumulative halo (every tap clamps), a flat plane; batch independence
+    cfg = SiftConfig()
+    taps = [cfg.gaussian_taps(float(s)) for s in cfg.incremental_sigmas()]
+    rng = np.random.default_rng(4)
+    par = Parity(cfg, sync)
+    for label, shape, flat in (("33x47", (1, 33, 47), False), ("150x200, B=2", (2, 150, 200), False),
+                               ("below the halo", (2, 20, 26), False), ("flat", (2, 64, 64), True)):
+        base = np.full(shape, 0.5, np.float32) if flat else rng.random(shape, np.float32)
+        base = torch.from_numpy(base).to(dev)
+        err = par.octave(base, taps, f"edge {label}", timed=False)
+        octave_batch_independence(base, taps, f"edge {label}")
+        log(f"  blur_octave_fused ({label} {shape}): max abs err {err:.3g}, batch-independent")
 
     rng = np.random.default_rng(5)
     d0 = rng.integers(0, 256, (2, 100, 128), dtype=np.uint8)
@@ -528,6 +601,107 @@ def facade_phase(dev, sync, frames, k):
     return launches, sampled, gated, timed
 
 
+def rot_angle(Ra, Rb) -> float:
+    """Angle of Ra Rb^T in radians, from atan2 of its skew and symmetric parts
+    (arccos of the trace cannot resolve angles below ~5e-4 rad in f32)."""
+    dR = np.asarray(Ra, np.float64) @ np.asarray(Rb, np.float64).T
+    s = np.linalg.norm([dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0], dR[1, 0] - dR[0, 1]]) / 2
+    return float(np.arctan2(s, (np.trace(dR) - 1) / 2))
+
+
+def twoview_phase(dev, sync, h=H, w=W, k=K):
+    """Phase 4c: `two_view_reconstruct` (BASELINE config 4) on a calibrated
+    two-plane stereo pair with launch counters reset before it.  Returns
+    the timed stage calls."""
+    import torch
+
+    from siftgpu_tpu_torch import Features, MatchConfig, MatchResult, SiftConfig
+    from siftgpu_tpu_torch.frontend.extract import extract_features
+    from siftgpu_tpu_torch.frontend.match import match_descriptors
+    from siftgpu_tpu_torch.geometry import epipolar, pose
+    from siftgpu_tpu_torch.ops import _build
+    from siftgpu_tpu_torch.optim import ba
+    from siftgpu_tpu_torch.oracle import fixtures
+    from siftgpu_tpu_torch.pipeline import twoview
+
+    log("phase 4c: two-view path (BASELINE config 4)")
+    f = 180.0 * w / 200.0   # tests/test_twoview.py's intrinsics, scaled to the width
+    intr = (f, f, w / 2.0, h / 2.0)
+    img0, img1, meta = fixtures.two_plane_stereo(h, w, intr, RVEC, T_GT, d_near=5.0,
+                                                 d_far=10.0, seed=2)
+    images = torch.from_numpy(np.stack([img0, img1])).to(dev)
+    intr_t = torch.tensor(intr, dtype=torch.float32, device=dev)
+    cfg = SiftConfig(height=h, width=w, max_keypoints=k)
+    mcfg = MatchConfig(max_sift=k, max_match=k)
+    inputs, draws, ransac_args, pose_args, ba_args = [], [], [], [], []
+    for kern in _build.KERNELS.values():
+        kern.launches = 0
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(recording(twoview, "two_view_from_features", inputs))
+        stack.enter_context(recording(epipolar, "sample_minimal_sets", [], draws))
+        stack.enter_context(recording(epipolar, "ransac_from_samples", ransac_args))
+        stack.enter_context(recording(pose, "recover_pose", pose_args))
+        stack.enter_context(recording(ba, "run_ba", ba_args))
+        res = twoview.two_view_reconstruct(images, intr_t, cfg, mcfg,
+                                           torch.Generator(device=dev).manual_seed(7))
+    sync()
+    launches = {name: kern.launches for name, kern in _build.KERNELS.items()}
+    log(f"  launches {launches}")
+    if dev.type == "cuda":
+        missing = [n for n in MAIN_KERNELS if launches[n] == 0]  # extract + match
+        if missing:
+            raise AssertionError(f"two-view path did not launch {missing}")
+
+    # tests/test_twoview.py's ground-truth bounds
+    nm, ni = int(res.num_matches), int(res.num_inliers)
+    ang = rot_angle(res.R.cpu().numpy(), meta["R"])
+    t = res.t.cpu().numpy()
+    tn, tg = t / np.linalg.norm(t), T_GT / np.linalg.norm(T_GT)
+    tdir = float(min(np.abs(tn - tg).max(), np.abs(tn + tg).max()))
+    rms = float(res.rms)
+    m = res.point_mask.cpu().numpy()
+    z = res.points.cpu().numpy()[m][:, 2] / (np.linalg.norm(t) / np.linalg.norm(T_GT))
+    bands = float(((z > 4.0) & (z < 6.0)).mean() + ((z > 8.0) & (z < 12.0)).mean())
+    log(f"  {h}x{w}, f = {f:g} px: {nm} matches, {ni} inliers, {int(m.sum())} points; rotation "
+        f"error {ang:.3g} rad, translation direction {tdir:.3g}, RMS {rms:.4f} px, "
+        f"{bands:.4f} of the points in the depth bands")
+    if not (nm > 100 and ni > 0.5 * nm and ang < 0.01 and tdir < 0.02 and rms < 0.75
+            and bands > 0.8):
+        raise AssertionError("two-view: a ground-truth bound failed")
+
+    # the card's features, matches and draws through the port on the CPU
+    feats, mres = inputs[0][0], inputs[0][1]
+    cpu = twoview.two_view_from_features(
+        Features(*(x.cpu() for x in feats)), MatchResult(*(x.cpu() for x in mres)),
+        intr_t.cpu(), samples=draws[0].cpu())
+    d_cpu = rot_angle(cpu.R.numpy(), res.R.cpu().numpy())
+    log(f"  the same draws on the CPU: rotation {d_cpu:.3g} rad from the card's, "
+        f"{int(cpu.num_inliers)} inliers, RMS {float(cpu.rms):.4f} px")
+    if not d_cpu < 1e-3:
+        raise AssertionError(f"two-view: CPU vs card rotation {d_cpu} rad")
+    again = twoview.two_view_from_features(feats, mres, intr_t, samples=draws[0])
+    same = all(torch_equal_bits(a, b) for a, b in ((again.R, res.R), (again.points, res.points),
+                                                     (again.ba_state.cams, res.ba_state.cams)))
+    log(f"  a repeated card run on the same draws: "
+        f"{'bit-identical' if same else 'differs'} (points max diff "
+        f"{float((again.points - res.points).abs().max()):.3g})")
+
+    x0, x1, valid, _, thr = ransac_args[0]
+    g = torch.Generator(device=dev).manual_seed(7)
+    timed = {
+        "extract (2 frames)": lambda: extract_features(images, cfg),
+        "match": lambda: match_descriptors(feats.desc[0], feats.desc[1], feats.mask[0],
+                                           feats.mask[1], mcfg),
+        "RANSAC (512 hypotheses, draws included)":
+            lambda: epipolar.ransac_essential(x0, x1, valid, g, 512, thr),
+        "pose (recover_pose)": lambda: pose.recover_pose(*pose_args[0]),
+        "BA (10 LM x 30 CG)": lambda: ba.run_ba(*ba_args[0]),
+        "two_view_reconstruct (whole)": lambda: twoview.two_view_reconstruct(
+            images, intr_t, cfg, mcfg, torch.Generator(device=dev).manual_seed(7)),
+    }
+    return timed
+
+
 def run(device: str, h=H, w=W, b=B, k=K):
     """The whole smoke run on `device` (a CUDA device on the chip; the CPU
     only to rehearse the control flow, where both routes are plain)."""
@@ -553,7 +727,14 @@ def run(device: str, h=H, w=W, b=B, k=K):
     # ---- 3. kernel vs plain at the main path's shapes ----
     log("phase 3: kernels against their plain versions")
     par = Parity(cfg, sync)
-    pyr = pyramid.build_pyramid(images, cfg)
+    bases = []
+    with recording(pyramid, "blur_octave_fused", bases):
+        pyr = pyramid.build_pyramid(images, cfg)
+    for base, taps in bases:
+        par.octave(base, taps, "main path")
+    octave_batch_independence(*bases[0], "main path octave 0")
+    log(f"  blur_octave_fused: within {par.err['blur_octave_fused']:.3g} of the cuDNN chain on "
+        f"the {len(bases)} octave bases {[tuple(x.shape) for x, _ in bases]}; batch-independent")
     for oc in pyr:
         par.detect(oc.dog)
         par.grad(oc.gauss)
@@ -614,6 +795,9 @@ def run(device: str, h=H, w=W, b=B, k=K):
     log(f"  sample_gradients: bit-identical on the {len(sampled)} calls of "
         "run_sift_with_keypoints (every octave, 512-keypoint chunks)")
 
+    # ---- 4c. the two-view path, counted ----
+    twoview_calls = twoview_phase(dev, sync, h, w, k)
+
     # ---- 5. times ----
     records = []
     timing = dev.type == "cuda"   # CUDA events; a CPU rehearsal skips the times
@@ -625,6 +809,17 @@ def run(device: str, h=H, w=W, b=B, k=K):
         log(f"  extract {b} x {h}x{w}: {ex_ms:.3f} ms; match {b - 1} pairs: {m_ms:.3f} ms")
         for label, fn in facade_calls.items():
             log(f"  facade {label}: {time_ms(fn, sync, 5):.3f} ms")
+        fused = lambda: pyramid.build_pyramid(images, cfg)
+        chain = lambda: pyramid.build_pyramid(images, cfg, octave_impl="xla")
+        c1, f1, f2, c2 = (time_ms(fn, sync, 10) for fn in (chain, fused, fused, chain))
+        log(f"  pyramid {b} x {h}x{w}: octave kernel {(f1 + f2) / 2:.3f} ms, "
+            f"cuDNN chain {(c1 + c2) / 2:.3f} ms (runs {f1:.3f}/{f2:.3f}, {c1:.3f}/{c2:.3f})")
+        for o, (kf, pl) in enumerate(par.calls["blur_octave_fused"]):
+            p1, k1, k2, p2 = (time_ms(fn, sync, 10) for fn in (pl, kf, kf, pl))
+            log(f"  blur_octave_fused octave {o}: kernel {(k1 + k2) / 2:.4f} ms, "
+                f"cuDNN chain {(p1 + p2) / 2:.4f} ms")
+        for label, fn in twoview_calls.items():
+            log(f"  two-view {label}: {time_ms(fn, sync, 5):.3f} ms")
     for name, kern in _build.KERNELS.items():
         ms = plain_ms = None
         if timing:
@@ -655,7 +850,8 @@ def main() -> int:
         return 1
     try:  # importing the ops modules registers their kernels in _build.KERNELS
         from siftgpu_tpu_torch.ops import (_build, desc_sampler, detect_scores,  # noqa: F401
-                                           grad_stencil, kp_engine, match_kernel)
+                                           grad_stencil, kp_engine, match_kernel,
+                                           pyramid_kernel)
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 1

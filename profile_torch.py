@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch/CUDA port's main path goes, on one GPU.
+"""Where the time of the PyTorch/CUDA port's main and two-view paths goes,
+on one GPU.
 
     python3 profile_torch.py
 
-Same workload as chip_smoke.py (4 x 480x640 frames, K = 2048, 3 pairs).
-Prints:
+Same workloads as chip_smoke.py (4 x 480x640 frames, K = 2048, 3 pairs; the
+two-plane stereo pair of its phase 4c).  Prints:
   1. host-clock stage times (each stage ends in torch.cuda.synchronize());
   2. a torch.profiler table of device time by kernel over 5 extract + match
-     iterations, and the device busy share of that window;
+     iterations, and the device busy share of that window; the same for
+     `two_view_reconstruct` and for its bundle adjustment alone;
   3. the FMA probes: the detect_scores and sample_gradients kernels built
      WITHOUT -fmad=false, against their plain versions — how many values
      change when nvcc contracts multiply-adds;
@@ -22,9 +24,10 @@ from __future__ import annotations
 import sys
 import time
 
+import numpy as np
 import torch
 
-from chip_smoke import K, SHIFT, card_line, make_frames, recording
+from chip_smoke import H, K, RVEC, SHIFT, T_GT, W, card_line, make_frames, recording
 from siftgpu_tpu_torch import MatchConfig, SiftConfig, extract_features, match_descriptors_batch
 from siftgpu_tpu_torch.frontend import describe, detect, extract, fused, match, orient, pyramid, redetect
 from siftgpu_tpu_torch.ops import _build, desc_sampler, detect_scores, match_kernel
@@ -65,6 +68,56 @@ def stage_times(images, cfg, mcfg, reps=10):
     return {k: v / reps for k, v in acc.items()}
 
 
+def profile_window(label, step, iters, top=25):
+    """Host ms per call of `step` (10 calls, no profiler), then device kernel
+    time by kernel and the busy share over `iters` profiled calls."""
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 10
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+    print(f"{label}: {wall:.3f} ms per iteration (host clock, no profiler); "
+          f"device kernel time {busy:.3f} ms per iteration (torch.profiler, {iters} iterations), "
+          f"busy share {100 * busy / wall:.1f}%, {sum(e.count for e in kernels) // iters} kernels")
+    for e in kernels[:top]:
+        print(f"  {e.self_device_time_total / 1e3 / iters:9.4f} ms/iter  "
+              f"{e.count // iters:5d} launches/iter  {e.key[:100]}")
+
+
+def twoview_profile():
+    """`two_view_reconstruct` on chip_smoke.py's phase-4c stereo pair, and
+    its bundle adjustment (10 LM x 30 CG) on the problem that call built."""
+    from siftgpu_tpu_torch.optim import ba
+    from siftgpu_tpu_torch.oracle import fixtures
+    from siftgpu_tpu_torch.pipeline import twoview
+
+    f = 180.0 * W / 200.0
+    intr = (f, f, W / 2.0, H / 2.0)
+    img0, img1, _ = fixtures.two_plane_stereo(H, W, intr, RVEC, T_GT, seed=2)
+    images = torch.from_numpy(np.stack([img0, img1])).cuda()
+    intr_t = torch.tensor(intr, dtype=torch.float32, device="cuda")
+    cfg = SiftConfig(height=H, width=W, max_keypoints=K)
+    mcfg = MatchConfig(max_sift=K, max_match=K)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    run = lambda: twoview.two_view_reconstruct(images, intr_t, cfg, mcfg, gen)
+    problems = []
+    with recording(ba, "run_ba", problems):
+        run()
+    profile_window("two_view_reconstruct", run, 3, top=15)
+    profile_window("run_ba (10 LM x 30 CG)", lambda: ba.run_ba(*problems[0]), 3, top=10)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA device", file=sys.stderr)
@@ -86,27 +139,8 @@ def main() -> int:
         f = extract_features(images, cfg)
         match_descriptors_batch(f.desc[:-1], f.desc[1:], f.mask[:-1], f.mask[1:], mcfg)
 
-    step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        step()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / 10
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(5):
-            step()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / 5
-    print(f"extract + match: {wall:.3f} ms per iteration (host clock, no profiler); "
-          f"device kernel time {busy:.3f} ms per iteration (torch.profiler, 5 iterations), "
-          f"busy share {100 * busy / wall:.1f}%, {sum(e.count for e in kernels) // 5} kernels")
-    for e in kernels[:25]:
-        print(f"  {e.self_device_time_total / 1e3 / 5:9.4f} ms/iter  {e.count // 5:5d} launches/iter  {e.key[:100]}")
+    profile_window("extract + match", step, 5)
+    twoview_profile()
 
     # ---- FMA probe: detect_scores built with nvcc's default contraction ----
     probe = _build.Kernel("detect_scores_fmad", "detect_scores.cu", detect_scores.KERNEL.entry)

@@ -8,8 +8,8 @@ package's configs and outputs into the port:
     `dataclasses.asdict()` of a `siftgpu_tpu` config;
   - `to_torch` turns a NumPy or JAX array (anything `np.asarray` accepts,
     bf16 included) into a tensor, and `tree_to_torch` does so field by field
-    for a NamedTuple, so one stage's reference output can feed the next stage
-    of the port;
+    for a NamedTuple (features, match results, BA problems and states), so
+    one stage's reference output can feed the next stage of the port;
   - `keypoints_from_reference` takes the valid (x, y, sigma, theta) rows of
     a reference `Features` (the list descriptor-only mode consumes), and
     `matrix_to_torch` a reference H or F as an f32 tensor.
@@ -63,9 +63,10 @@ def to_torch(a, device: str | torch.device = "cpu") -> torch.Tensor:
 
 def tree_to_torch(nt, cls, device: str | torch.device = "cpu"):
     """Reference NamedTuple -> the port's NamedTuple `cls`, taking the fields
-    `cls` names (Python ints pass through, arrays become tensors)."""
+    `cls` names (Python ints and None pass through, arrays become tensors):
+    `Features`, `MatchResult`, `BAProblem`, `BAState`, ..."""
     def conv(v):
-        return v if isinstance(v, (int, float)) else to_torch(v, device)
+        return v if v is None or isinstance(v, (int, float)) else to_torch(v, device)
 
     return cls(**{name: conv(getattr(nt, name)) for name in cls._fields})
 

@@ -32,7 +32,7 @@ import torch
 from ..core.config import SiftConfig
 from ..ops.desc_sampler import sample_gradients
 from .orient import GradStack
-from .pyramid import full_f32
+from ..core.precision import full_f32
 
 __all__ = ["bin_descriptors", "finalize_descriptors", "compute_descriptors"]
 

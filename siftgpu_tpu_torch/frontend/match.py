@@ -29,7 +29,7 @@ import torch
 
 from ..core.config import MatchConfig
 from ..ops.match_kernel import best2_dense, gate_matrix, match_best2, match_best2_gated, recip_norms
-from .pyramid import full_f32
+from ..core.precision import full_f32
 
 __all__ = [
     "MatchResult", "match_descriptors", "match_descriptors_batch",

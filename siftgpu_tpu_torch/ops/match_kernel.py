@@ -33,7 +33,7 @@ import ctypes
 import torch
 
 from . import _build
-from ..frontend.pyramid import full_f32
+from ..core.precision import full_f32
 
 __all__ = [
     "match_best2", "match_best2_plain", "match_best2_gated",

@@ -1,0 +1,272 @@
+"""Bundle adjustment: Levenberg-Marquardt with a matrix-free Schur complement.
+
+Port of `siftgpu_tpu/optim/ba.py`.  The reduced camera system
+S = H_cc - W H_pp^-1 W^T is never materialized: S @ x is evaluated per
+observation with segment sums (`index_add_`).  Structure-of-arrays problem
+layout, fixed shapes, the LM loop and the CG loop as Python loops with
+accept/reject as `torch.where` — no host sync inside.  Gauge: camera 0 is
+frozen.
+
+Differences from the reference:
+  - the Jacobians are closed form (d(R X)/dw = -[R X]x J_l(w), J_l the left
+    Jacobian of SO(3)) instead of `jax.jacfwd`; they follow the same
+    branches (R = I + [w]x below theta = 1e-8, the depth clamp at 1e-9);
+  - the reference's `psum_axis` hook (observations sharded over devices)
+    waits for the port of `parallel/` on `torch.distributed`;
+  - every contraction runs with TF32 off (`full_f32`), the reference's
+    "highest";
+  - on the card `index_add_` adds with float atomics in no fixed order, so
+    repeated runs may differ in the last bits.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..core.precision import full_f32
+from ..geometry.pose import _so3_left_jacobian, exp_so3, hat
+
+__all__ = [
+    "BAProblem", "BAState", "project", "reprojection_residuals", "schur_solve",
+    "run_ba", "refine_points",
+]
+
+
+class BAProblem(NamedTuple):
+    cams: torch.Tensor        # [M, 6] (so3 rotvec, translation), world->cam
+    points: torch.Tensor      # [P, 3]
+    intrinsics: torch.Tensor  # [4] fx, fy, cx, cy (shared)
+    cam_idx: torch.Tensor     # [N] int
+    pt_idx: torch.Tensor      # [N] int
+    uv: torch.Tensor          # [N, 2] pixel observations
+    w: torch.Tensor           # [N] observation weights (0 masks out)
+    # optional [P] bool: FIXED landmarks — their observations still
+    # constrain the cameras, but the points themselves do not move
+    pt_fixed: Optional[torch.Tensor] = None
+
+
+class BAState(NamedTuple):
+    cams: torch.Tensor
+    points: torch.Tensor
+    lam: torch.Tensor         # LM damping
+    cost: torch.Tensor
+
+
+def _camera_frame(cams, points, prob: BAProblem):
+    """Per observation: R [N, 3, 3], X [N, 3] and the camera-frame point
+    xc = R X + t [N, 3]."""
+    R = exp_so3(cams[:, :3])[prob.cam_idx.long()]
+    X = points[prob.pt_idx.long()]
+    xc = (R @ X[:, :, None])[:, :, 0] + cams[prob.cam_idx.long(), 3:]
+    return R, X, xc
+
+
+def _pixels(xc, intr):
+    """Pinhole projection of camera-frame points [..., 3] -> [..., 2], with
+    the depth clamped away from 0 as the reference does."""
+    z = xc[..., 2:]
+    z = torch.where(z.abs() < 1e-9, torch.full_like(z, 1e-9), z)
+    return intr[:2] * xc[..., :2] / z + intr[2:]
+
+
+def project(cam: torch.Tensor, X: torch.Tensor, intr: torch.Tensor) -> torch.Tensor:
+    """cam [..., 6], X [..., 3], intr [4] -> pixel [..., 2]."""
+    with full_f32():
+        xc = (exp_so3(cam[..., :3]) @ X[..., None])[..., 0] + cam[..., 3:]
+    return _pixels(xc, intr)
+
+
+def reprojection_residuals(prob: BAProblem, cams, points) -> torch.Tensor:
+    """[N, 2] weighted residuals."""
+    with full_f32():
+        _, _, xc = _camera_frame(cams, points, prob)
+    return (_pixels(xc, prob.intrinsics) - prob.uv) * torch.sqrt(prob.w)[:, None]
+
+
+def _cost(prob, cams, points):
+    r = reprojection_residuals(prob, cams, points)
+    return (r * r).sum()
+
+
+def _proj_jacobian(xc, intr):
+    """d pixel / d xc [N, 2, 3] (no weighting); the depth derivative is 0
+    where the depth was clamped."""
+    z = xc[:, 2]
+    live = z.abs() >= 1e-9
+    z = torch.where(live, z, torch.full_like(z, 1e-9))
+    fx, fy = intr[0], intr[1]
+    zero = torch.zeros_like(z)
+    dz = torch.where(live, torch.ones_like(z), zero) / (z * z)
+    return torch.stack([
+        torch.stack([fx / z, zero, -fx * xc[:, 0] * dz], -1),
+        torch.stack([zero, fy / z, -fy * xc[:, 1] * dz], -1),
+    ], -2)
+
+
+def _jacobians(prob: BAProblem, cams, points):
+    """Per-observation closed-form Jacobians.
+    Returns r [N, 2], Jc [N, 2, 6], Jp [N, 2, 3] (weighted)."""
+    ci = prob.cam_idx.long()
+    with full_f32():
+        R, X, xc = _camera_frame(cams, points, prob)
+        sw = torch.sqrt(prob.w)[:, None]
+        r = (_pixels(xc, prob.intrinsics) - prob.uv) * sw
+        Jx = _proj_jacobian(xc, prob.intrinsics) * sw[:, :, None]   # [N, 2, 3]
+        wcam = cams[ci, :3]
+        theta = torch.linalg.vector_norm(wcam, dim=-1)[:, None, None]
+        drot = torch.where(theta < 1e-8, -hat(X),
+                           -hat((R @ X[:, :, None])[:, :, 0]) @ _so3_left_jacobian(wcam))
+        Jc = torch.cat([Jx @ drot, Jx], dim=-1)                      # [N, 2, 6]
+        Jp = Jx @ R                                                  # [N, 2, 3]
+    return r, Jc, Jp
+
+
+def _inv3(A):
+    """Batched closed-form 3x3 inverse (adjugate/det) for SPD blocks."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    A11 = e * i - f * h
+    A12 = c * h - b * i
+    A13 = b * f - c * e
+    A21 = f * g - d * i
+    A22 = a * i - c * g
+    A23 = c * d - a * f
+    A31 = d * h - e * g
+    A32 = b * g - a * h
+    A33 = a * e - b * d
+    det = a * A11 + b * A21 + c * A31
+    det = torch.where(det.abs() < 1e-12, torch.full_like(det, 1e-12), det)
+    adj = torch.stack([
+        torch.stack([A11, A12, A13], -1),
+        torch.stack([A21, A22, A23], -1),
+        torch.stack([A31, A32, A33], -1),
+    ], -2)
+    return adj / det[..., None, None]
+
+
+def _segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.zeros((n, *x.shape[1:]), dtype=x.dtype, device=x.device).index_add_(0, idx, x)
+
+
+def _nonzero(x: torch.Tensor, eps: float) -> torch.Tensor:
+    return torch.where(x.abs() < eps, torch.full_like(x, eps), x)
+
+
+def schur_solve(r, Jc, Jp, cam_idx, pt_idx, M: int, P: int, lam, gauge_mask,
+                n_cg: int = 30, pt_fixed: Optional[torch.Tensor] = None):
+    """Solve the damped normal equations via Schur complement + PCG.
+    Returns (dcam [M, 6], dpt [P, 3]).  `gauge_mask` [M] zeroes frozen
+    cameras."""
+    ci, pi = cam_idx.long(), pt_idx.long()
+    ein = torch.einsum
+    with full_f32():
+        # gradient blocks
+        bc = _segment_sum(-ein("nij,ni->nj", Jc, r), ci, M)            # [M, 6]
+        bp = _segment_sum(-ein("nij,ni->nj", Jp, r), pi, P)            # [P, 3]
+        # block diagonals (damped)
+        eye6 = torch.eye(6, dtype=r.dtype, device=r.device)
+        eye3 = torch.eye(3, dtype=r.dtype, device=r.device)
+        Hcc = _segment_sum(ein("nij,nik->njk", Jc, Jc), ci, M) + lam * eye6
+        Hpp = _segment_sum(ein("nij,nik->njk", Jp, Jp), pi, P) + lam * eye3
+        Hpp_inv = _inv3(Hpp)
+        if pt_fixed is not None:
+            # fixed landmarks: no marginalization block, dpt = 0, and their
+            # observations act as pure camera constraints
+            Hpp_inv = torch.where(pt_fixed[:, None, None], torch.zeros_like(Hpp_inv), Hpp_inv)
+        gm = gauge_mask[:, None].to(bc.dtype)
+
+        def S_matvec(x):                                               # x: [M, 6]
+            u = ein("nij,nj->ni", Jc, x[ci])                           # [N, 2]
+            v = _segment_sum(ein("nij,ni->nj", Jp, u), pi, P)          # [P, 3]
+            y = ein("pij,pj->pi", Hpp_inv, v)
+            wv = ein("nij,nj->ni", Jp, y[pi])
+            out = _segment_sum(ein("nij,ni->nj", Jc, u - wv), ci, M)
+            return (out + lam * x) * gm
+
+        # reduced RHS: bc - W Hpp^-1 bp
+        yb = ein("pij,pj->pi", Hpp_inv, bp)
+        wb = ein("nij,nj->ni", Jp, yb[pi])
+        rhs = (bc - _segment_sum(ein("nij,ni->nj", Jc, wb), ci, M)) * gm
+
+        # PCG with a block-Jacobi (6x6 Hcc) preconditioner
+        Minv = torch.linalg.inv(Hcc)
+
+        def precond(v):
+            return ein("mij,mj->mi", Minv, v) * gm
+
+        x = torch.zeros_like(rhs)
+        rr = rhs
+        p = precond(rhs)
+        rz = (rhs * p).sum()
+        for _ in range(n_cg):
+            Ap = S_matvec(p)
+            alpha = rz / _nonzero((p * Ap).sum(), 1e-20)
+            x = x + alpha * p
+            rr = rr - alpha * Ap
+            z = precond(rr)
+            rz_new = (rr * z).sum()
+            p = z + rz_new / _nonzero(rz, 1e-20) * p
+            rz = rz_new
+
+        # back-substitute points: dp = Hpp^-1 (bp - W^T dcam)
+        u = ein("nij,nj->ni", Jc, x[ci])
+        wtd = _segment_sum(ein("nij,ni->nj", Jp, u), pi, P)
+        dpt = ein("pij,pj->pi", Hpp_inv, bp - wtd)
+    return x, dpt
+
+
+def run_ba(prob: BAProblem, iters: int = 10, n_cg: int = 30,
+           fix_first_cam: bool = True, lam0: float = 1e-3) -> BAState:
+    """LM loop with multiplicative accept/reject damping, `iters` steps of
+    `n_cg` CG iterations each; the decisions stay on the device."""
+    M, P = prob.cams.shape[0], prob.points.shape[0]
+    dev, dt = prob.cams.device, prob.cams.dtype
+    gauge = torch.ones(M, dtype=dt, device=dev)
+    if fix_first_cam:
+        gauge[0] = 0.0
+    state = BAState(cams=prob.cams, points=prob.points,
+                    lam=torch.tensor(lam0, dtype=torch.float32, device=dev),
+                    cost=_cost(prob, prob.cams, prob.points))
+    for _ in range(iters):
+        r, Jc, Jp = _jacobians(prob, state.cams, state.points)
+        dcam, dpt = schur_solve(r, Jc, Jp, prob.cam_idx, prob.pt_idx, M, P, state.lam,
+                                gauge, n_cg, pt_fixed=prob.pt_fixed)
+        new_cams = state.cams + dcam
+        new_pts = state.points + dpt
+        new_cost = _cost(prob, new_cams, new_pts)
+        accept = new_cost < state.cost
+        lam = torch.where(accept, state.lam * 0.3, state.lam * 4.0)
+        state = BAState(
+            cams=torch.where(accept, new_cams, state.cams),
+            points=torch.where(accept, new_pts, state.points),
+            lam=torch.clamp(lam, 1e-9, 1e6),
+            cost=torch.where(accept, new_cost, state.cost),
+        )
+    return state
+
+
+def refine_points(prob: BAProblem, iters: int = 3, huber_px: float = 3.0) -> torch.Tensor:
+    """Points-only Gauss-Newton refit with the CAMERAS FIXED (Huber IRLS):
+    per-point 3x3 damped normal equations, one segment sum per iteration.
+    Returns the refined [P, 3] points (unobserved points keep theirs)."""
+    Pn = prob.points.shape[0]
+    pi = prob.pt_idx.long()
+    points = prob.points
+    with full_f32():
+        for _ in range(iters):
+            R, _, xc = _camera_frame(prob.cams, points, prob)
+            r = _pixels(xc, prob.intrinsics) - prob.uv
+            Jp = _proj_jacobian(xc, prob.intrinsics) @ R                # [N, 2, 3]
+            rn = torch.linalg.vector_norm(r, dim=1)
+            rn = torch.clamp(rn, min=1e-9)
+            w = prob.w * torch.clamp(torch.full_like(rn, huber_px) / rn, max=1.0)
+            bp = _segment_sum(-torch.einsum("nij,ni->nj", Jp, r * w[:, None]), pi, Pn)
+            Hpp = _segment_sum(w[:, None, None] * torch.einsum("nij,nik->njk", Jp, Jp), pi, Pn)
+            Hpp = Hpp + 1e-4 * torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
+            dpt = torch.einsum("pij,pj->pi", _inv3(Hpp), bp)
+            # guard: a point with degenerate observations must not fly away
+            points = points + torch.clamp(dpt, -1e3, 1e3)
+    return points

@@ -1,17 +1,21 @@
 """Synthetic image fixtures: a NumPy copy of `siftgpu_tpu/oracle/fixtures.py`.
 
-Only the JAX-free fixtures are copied (`two_plane_*` need the JAX geometry
-module and wait for the port of `geometry/`).  The copies are verbatim, so a
-seed gives the same image in both packages.
+The copies are verbatim, so a seed gives the same image in both packages.
+`two_plane_stereo` takes its rotation from the port's `exp_so3` in float32,
+as the reference's does from JAX's with 64-bit floats off; the
+`two_plane_sequence*` fixtures wait for the port of the SLAM loop.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..geometry.pose import exp_so3
 
 __all__ = [
     "gaussian_blob_image", "checkerboard", "random_texture", "warp_affine",
-    "warp_homography",
+    "warp_homography", "two_plane_stereo",
 ]
 
 
@@ -74,6 +78,40 @@ def warp_homography(img, H, out_shape=None):
         + img[y0c + 1, x0c + 1] * fy * fx
     )
     return np.where(valid, out, 0.0).astype(np.float32), valid
+
+
+def two_plane_stereo(h, w, intr, rvec, t, d_near=5.0, d_far=10.0, seed=0):
+    """Synthetic calibrated stereo pair of two fronto-parallel textured planes
+    (top half at depth d_far, bottom half at d_near) — non-degenerate for E.
+
+    intr: (fx, fy, cx, cy); rvec/t: pose of cam1 (x_c1 = R x_c0 + t).
+    Returns (img0, img1, meta) where meta holds K, R, t and plane depths.
+    R is float32, computed as the reference computes it (Rodrigues in f32):
+    the warps then see the same rotation, to the last bit wherever the two
+    frameworks' f32 `cos` agree."""
+    fx, fy, cx, cy = intr
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    Kinv = np.linalg.inv(K)
+    R = exp_so3(torch.from_numpy(np.asarray(rvec, np.float32))).numpy()
+    n = np.array([0.0, 0.0, 1.0])
+
+    def plane_H(d):
+        return K @ (R + np.outer(t, n) / d) @ Kinv
+
+    tex_far = random_texture(h, w, seed=seed, smooth=2)
+    tex_near = random_texture(h, w, seed=seed + 1, smooth=2)
+    yy = np.mgrid[0:h, 0:w][0]
+    top = yy < h // 2
+    img0 = np.where(top, tex_far, tex_near).astype(np.float32)
+
+    w_far, v_far = warp_homography(np.where(top, tex_far, 0.0).astype(np.float32), plane_H(d_far))
+    w_near, v_near = warp_homography(
+        np.where(~top, tex_near, 0.0).astype(np.float32), plane_H(d_near)
+    )
+    # near plane occludes far where both project
+    img1 = np.where(w_near > 0, w_near, w_far).astype(np.float32)
+    meta = dict(K=K, R=R, t=np.asarray(t, np.float64), d_near=d_near, d_far=d_far)
+    return img0, img1, meta
 
 
 def warp_affine(img, A, t, out_shape=None):

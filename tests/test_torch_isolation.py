@@ -10,11 +10,12 @@ import pytest
 import torch
 
 from siftgpu_tpu_torch.core.config import SiftConfig
+from siftgpu_tpu_torch.frontend import pyramid
 from siftgpu_tpu_torch.ops import (_build, desc_sampler, detect_scores, grad_stencil, kp_engine,
-                                   match_kernel)
+                                   match_kernel, pyramid_kernel)
 
 KERNEL_NAMES = ["detect_scores", "grad_stencil", "orient_sample", "match_best2",
-                "match_best2_gated", "sample_gradients"]
+                "match_best2_gated", "sample_gradients", "blur_octave_fused"]
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -25,13 +26,15 @@ def test_imports_without_jax_or_reference():
             sys.modules[name] = None          # any import of them now fails
         import siftgpu_tpu_torch
         from siftgpu_tpu_torch import convert
-        from siftgpu_tpu_torch.core import config, flags, image, scalespace
+        from siftgpu_tpu_torch.core import config, flags, image, precision, scalespace
         from siftgpu_tpu_torch.frontend import (describe, detect, extract, fused, match, orient,
                                                 pyramid, redetect)
+        from siftgpu_tpu_torch.geometry import epipolar, pose
         from siftgpu_tpu_torch.ops import (_build, desc_sampler, detect_scores, grad_stencil,
-                                           kp_engine, match_kernel)
+                                           kp_engine, match_kernel, pyramid_kernel)
+        from siftgpu_tpu_torch.optim import ba
         from siftgpu_tpu_torch.oracle import fixtures
-        from siftgpu_tpu_torch.pipeline import api, siftio
+        from siftgpu_tpu_torch.pipeline import api, siftio, twoview
         assert not any(m == "jax" or m.startswith(("jax.", "siftgpu_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print(sorted(_build.KERNELS))
@@ -77,7 +80,24 @@ def test_non_cpu_tensor_never_takes_the_plain_version(name):
         "sample_gradients": lambda: desc_sampler.sample_gradients(
             meta(3, 35, 35, dt=torch.bfloat16), meta(3, 35, 35, dt=torch.bfloat16),
             meta(4, dt=torch.int32), meta(4, 256), meta(4, 256)),
+        "blur_octave_fused": lambda: pyramid_kernel.blur_octave_fused(
+            meta(2, 32, 32), [cfg.gaussian_taps(float(s)) for s in cfg.incremental_sigmas()]),
     }
     with pytest.raises(ValueError, match="CUDA tensor"):
         calls[name]()
     assert _build.KERNELS[name].launches == 0
+
+
+@pytest.mark.parametrize("octave_impl", [None, "fused"])
+def test_pyramid_on_a_non_cpu_tensor_never_takes_the_plain_chain(monkeypatch, octave_impl):
+    """The pyramid's octaves of a tensor that is not on the CPU go to the
+    octave kernel's route, which refuses anything but a CUDA tensor; the
+    plain chain is not run.  Only octave_impl="xla" asks for the chain."""
+    def chain(*args):
+        raise AssertionError("the plain chain ran for a non-CPU tensor")
+
+    monkeypatch.setattr(pyramid_kernel, "blur_octave_fused_plain", chain)
+    cfg = SiftConfig(height=32, width=32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pyramid.build_pyramid(torch.empty(1, 32, 32, device="meta"), cfg, octave_impl)
+    assert _build.KERNELS["blur_octave_fused"].launches == 0
