@@ -24,9 +24,13 @@ CG steps of BA.  It checks them:
      calls that path makes, recorded), at the path's shapes, then at edge
      shapes (odd sizes, a flat image, masks, exact ties, grids that leave
      the image, rows fully gated out, near-vertical epilines); the octave
-     kernel on the 5 main-path octave bases, 33x47, 150x200 (B = 2), a plane
-     smaller than its 43 px halo and a flat image, within 1e-5, and every
-     frame of a batch bit-identical to the frame run alone;
+     kernel on the 5 main-path octave bases, 33x47, 150x200 (B = 2), 20x26
+     (B = 2 and a single tile, B = 1), ragged tiles (65x129), a flat image
+     and the radii of dog_levels 2 and 5, within 1e-5, and every frame of a
+     batch bit-identical to the frame run alone; orient_sample on N = 1, 7,
+     9, 10 and 64 bins, all keypoints masked, the plane corners and built
+     windows held to the plain version run on the CPU (an empty
+     histogram, an exact tie, a peak at exactly 0.8 max, one just below);
   4. main path: launch counters reset to 0, one extract + match, every
      main-path kernel must have launched; >= 90% known-shift inliers per
      pair; frame 0 on the CPU must pair >= 99% of its keypoints with the
@@ -43,10 +47,13 @@ CG steps of BA.  It checks them:
      rotation < 0.01 rad, translation direction < 0.02, RMS < 0.75 px,
      > 80% of points in the two depth bands); the same RANSAC draws through
      the port on the CPU give a rotation within 1e-3 rad of the card's;
-  5. times (CUDA events): extract and match per batch, the facade calls, the
-     whole pyramid with the octave kernel and with the cuDNN chain, the
-     two-view stages, and each kernel against its plain version at its
-     path's shapes (the octave kernel per octave as well).
+  5. times: extract and match per batch, the facade calls, the whole
+     pyramid with the octave kernel and with the cuDNN chain, the two-view
+     stages (CUDA events); each kernel against its plain version and, where
+     one PyTorch call computes the same function, that call, at its path's
+     shapes (the octave kernel per octave as well): CUDA events around
+     back-to-back calls and device time (torch.profiler), beside the
+     least time the card could take (`siftgpu_tpu_torch/bounds.py`).
 
 Any failed check raises.  The last three lines are the card's name and
 power limit, one JSON object with a record per kernel, and
@@ -60,6 +67,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 
@@ -130,6 +138,16 @@ def paired_share(xa, ya, xb, yb, tol=0.5) -> float:
     return hits / max(len(xa), 1)
 
 
+class Call(NamedTuple):
+    """A kernel call of a path: the kernel, its plain version, the one
+    PyTorch call that computes the same function (None where there is
+    none), and the work that sets its least time (`siftgpu_tpu_torch.bounds`)."""
+    kern: Callable
+    plain: Callable
+    lib: Optional[Callable]
+    work: object
+
+
 def time_ms(fn, sync, iters: int) -> float:
     """Mean ms per call of fn over `iters` calls, timed with CUDA events
     after one warm-up call."""
@@ -147,6 +165,25 @@ def time_ms(fn, sync, iters: int) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def device_ms(fns, sync, iters: int = 3) -> float:
+    """Device time (torch.profiler: the sum of the CUDA kernels' own time)
+    of one call of each of `fns`, summed, mean over `iters` rounds after a
+    warm-up round: what the card spends, without the host's launch gaps."""
+    import torch
+
+    for fn in fns:
+        fn()
+    sync()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            for fn in fns:
+                fn()
+        sync()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+
+
 class Parity:
     """Kernel-vs-plain comparisons on the card."""
 
@@ -154,17 +191,18 @@ class Parity:
         self.cfg = cfg
         self.sync = sync
         self.err = {}       # kernel name -> max abs error over its comparisons
-        self.calls = {}     # kernel name -> list of (kernel fn, plain fn)
+        self.calls = {}     # kernel name -> list of Call
 
-    def note(self, name, err, kern, plain, timed=True):
+    def note(self, name, err, kern, plain, work, lib=None, timed=True):
         """Record a comparison; `timed` ones are main-path calls, timed in phase 5."""
         self.err[name] = max(self.err.get(name, 0.0), float(err))
         if timed:
-            self.calls.setdefault(name, []).append((kern, plain))
+            self.calls.setdefault(name, []).append(Call(kern, plain, lib, work))
 
     def detect(self, dog):
         import torch
 
+        from siftgpu_tpu_torch import bounds
         from siftgpu_tpu_torch.ops import detect_scores as ds
 
         got = ds.detect_scores(dog, self.cfg)
@@ -180,10 +218,13 @@ class Parity:
             if not bool(ok.all()):
                 raise AssertionError(f"detect_scores: record off by {int(ulp.max())} ulp")
             err = max(err, float((g - r).abs().max()))
+        B, L, Hd, Wd = dog.shape
         self.note("detect_scores", err, lambda: ds.detect_scores(dog, self.cfg),
-                  lambda: ds.detect_scores_plain(dog, self.cfg))
+                  lambda: ds.detect_scores_plain(dog, self.cfg),
+                  bounds.detect_scores_work(B, L - 2, Hd, Wd))
 
     def grad(self, gauss):
+        from siftgpu_tpu_torch import bounds
         from siftgpu_tpu_torch.ops import grad_stencil as gs
 
         win = 2 * self.cfg.orient_window_radius + 1
@@ -194,16 +235,18 @@ class Parity:
         for g, r in zip(got, ref):
             if not torch_equal_bits(g, r):
                 raise AssertionError("grad_stencil: differs from the plain version")
+        lib = lambda: grad_library(gauss, S, win, win)
+        for g, r in zip(lib(), ref):   # the yardstick computes the same function
+            if not torch_equal_bits(g, r):
+                raise AssertionError("grad_stencil: torch.gradient differs from the plain version")
+        B, _, Hg, Wg = gauss.shape
         self.note("grad_stencil", 0.0, lambda: gs.grad_stencil(gauss, S, win, win),
-                  lambda: gs.grad_stencil_plain(gauss, S, win, win))
+                  lambda: gs.grad_stencil_plain(gauss, S, win, win),
+                  bounds.grad_stencil_work(B, S, Hg, Wg, max(Hg, win), max(Wg, win)), lib)
 
     def orient(self, grads, kp):
         import torch
 
-        from siftgpu_tpu_torch.frontend import describe
-        from siftgpu_tpu_torch.ops import kp_engine as ke
-
-        cfg = self.cfg
         Bk, Kk = kp.y.shape
         S, Hp, Wp = grads.gx.shape[1:]
         b_idx = torch.arange(Bk, dtype=torch.int32, device=kp.y.device)[:, None]
@@ -211,25 +254,54 @@ class Parity:
             grads.gx.reshape(Bk * S, Hp, Wp), grads.gy.reshape(Bk * S, Hp, Wp),
             (b_idx * S + (kp.grad_level - 1)).reshape(-1).contiguous(),
             kp.y.reshape(-1).contiguous(), kp.x.reshape(-1).contiguous(),
-            kp.sigma.reshape(-1).contiguous(), cfg, kp.mask.reshape(-1).contiguous(),
+            kp.sigma.reshape(-1).contiguous(), self.cfg, kp.mask.reshape(-1).contiguous(),
             grads.h, grads.w,
         )
+        self.orient_args(args, f"{Bk}x{Kk} keypoints on {Hp}x{Wp}")
+
+    def orient_args(self, args, label, timed=True, exact=False):
+        """orient_sample against its plain version on `args` within the
+        reference's budgets (validity agreement > 0.99, theta q98 < 1e-2 and
+        max < 0.2, samples within 1e-5 where theta agrees to 1e-6,
+        descriptors within 4 steps); masked keypoints must give zeros.
+        `exact`: built windows, where theta and validity must be equal."""
+        import torch
+
+        from siftgpu_tpu_torch import bounds
+        from siftgpu_tpu_torch.frontend import describe
+        from siftgpu_tpu_torch.ops import kp_engine as ke
+
+        cfg = self.cfg
+        mask = args[7]
         th_k, hp_k, sx_k, sy_k = ke.orient_sample(*args)
         self.sync()
         th_p, hp_p, sx_p, sy_p = ke.orient_sample_plain(*args)
-        m = kp.mask.reshape(-1)[:, None]
-        valid_k = hp_k | (m & (torch.arange(cfg.max_orientations, device=m.device) == 0))
-        valid_p = hp_p | (m & (torch.arange(cfg.max_orientations, device=m.device) == 0))
+        if exact:  # built windows: the plain version's semantics as the CPU runs it
+            cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+            ref = [x.to(mask.device) for x in ke.orient_sample_plain(*cpu)]
+            flips = torch.nonzero((ref[1] != hp_p).any(1)).flatten().tolist()
+            if flips:   # PyTorch's CUDA division by a scalar multiplies by its reciprocal
+                log(f"  orient_sample ({label}): the plain version on the card differs from "
+                    f"it on the CPU in the peaks of rows {flips}")
+            th_p, hp_p, sx_p, sy_p = ref
+        m = mask[:, None]
+        slot0 = torch.arange(cfg.max_orientations, device=m.device) == 0
+        valid_k, valid_p = hp_k | (m & slot0), hp_p | (m & slot0)
         agree = float((valid_k == valid_p).float().mean())
         both = valid_k & valid_p
         dth = (th_k - th_p).abs()[both]
         dth = torch.minimum(dth, 2 * np.pi - dth)
-        if agree <= 0.99:
-            raise AssertionError(f"orient_sample: validity agreement {agree}")
+        if agree <= 0.99 or (exact and agree < 1.0):
+            rows = torch.nonzero((valid_k != valid_p).any(1)).flatten().tolist()[:8]
+            raise AssertionError(f"orient_sample ({label}): validity agreement {agree} "
+                                 f"(rows {rows})")
         dth = torch.cat([dth, dth.new_zeros(1)])             # empty octaves
         q98, dmax = float(torch.quantile(dth, 0.98)), float(dth.max())
-        if q98 >= 1e-2 or dmax >= 0.2:
-            raise AssertionError(f"orient_sample: theta q98 {q98}, max {dmax}")
+        if q98 >= 1e-2 or dmax >= 0.2 or (exact and dmax > 1e-6):
+            raise AssertionError(f"orient_sample ({label}): theta q98 {q98}, max {dmax}")
+        dead = ~mask
+        if any(bool(x[dead].any()) for x in (th_k, hp_k, sx_k, sy_k)):
+            raise AssertionError(f"orient_sample ({label}): a masked keypoint has a nonzero output")
         G2 = cfg.descriptor_grid ** 2
         n = cfg.max_orientations
         close = both & ((th_k - th_p).abs() <= 1e-6)          # [N, n]
@@ -237,21 +309,27 @@ class Parity:
         err = float(torch.maximum((sx_k - sx_p).abs(), (sy_k - sy_p).abs())[rows].max()) \
             if bool(rows.any()) else 0.0
         if err > 1e-5:
-            raise AssertionError(f"orient_sample: samples differ by {err}")
+            raise AssertionError(f"orient_sample ({label}): samples differ by {err}")
         dk = describe.bin_descriptors(sx_k.view(1, -1, G2), sy_k.view(1, -1, G2),
                                       th_k.view(1, -1), cfg)[0]
         dp = describe.bin_descriptors(sx_p.view(1, -1, G2), sy_p.view(1, -1, G2),
                                       th_p.view(1, -1), cfg)[0]
         dd = (dk.int() - dp.int()).abs()[close.reshape(-1)]
         if dd.numel() and int(dd.max()) > 4:
-            raise AssertionError(f"orient_sample: descriptors differ by {int(dd.max())} steps")
-        log(f"  orient_sample: {int(m.sum())} kp, validity agreement {agree:.5f}, "
-            f"theta q98 {q98:.3g} max {dmax:.3g}, sample err {err:.3g}, "
+            raise AssertionError(f"orient_sample ({label}): descriptors differ by {int(dd.max())} steps")
+        log(f"  orient_sample ({label}): {int(mask.sum())} of {mask.shape[0]} kp live, validity "
+            f"agreement {agree:.5f}, theta q98 {q98:.3g} max {dmax:.3g}, sample err {err:.3g}, "
             f"desc max step {int(dd.max()) if dd.numel() else 0}")
+        P, Hp, Wp = args[0].shape
+        win = 2 * cfg.orient_window_radius + 1
+        work = bounds.orient_sample_work(
+            P, Hp, Wp, mask.shape[0], int(mask.sum()), int(mask.sum()) + int(hp_p[:, 1:].sum()),
+            win, cfg.orientation_bins, n, G2)
         self.note("orient_sample", err, lambda: ke.orient_sample(*args),
-                  lambda: ke.orient_sample_plain(*args))
+                  lambda: ke.orient_sample_plain(*args), work, timed=timed)
 
     def match(self, d0, d1, m0, m1, label, timed=True):
+        from siftgpu_tpu_torch import bounds
         from siftgpu_tpu_torch.ops import match_kernel as mk
 
         rn0, rn1 = mk.recip_norms(d0), mk.recip_norms(d1)
@@ -263,10 +341,12 @@ class Parity:
                 raise AssertionError(f"match_best2 ({label}): {name} differs from the plain version")
         log(f"  match_best2 ({label}, {tuple(d0.shape)} x {tuple(d1.shape)}): identical")
         self.note("match_best2", 0.0, lambda: mk.match_best2(d0, d1, rn0, rn1, m0, m1),
-                  lambda: mk.match_best2_plain(d0, d1, rn0, rn1, m0, m1), timed)
+                  lambda: mk.match_best2_plain(d0, d1, rn0, rn1, m0, m1),
+                  bounds.match_best2_work(*d0.shape[:2], d1.shape[1], d0.shape[2]), timed=timed)
 
 
     def sample(self, args, label, timed=True):
+        from siftgpu_tpu_torch import bounds
         from siftgpu_tpu_torch.ops import desc_sampler as dsm
 
         got = dsm.sample_gradients(*args)
@@ -275,10 +355,19 @@ class Parity:
         for name, g, r in zip(("sgx", "sgy"), got, ref):
             if not torch_equal_bits(g, r):
                 raise AssertionError(f"sample_gradients ({label}): {name} differs from the plain version")
+        lib = sample_library(*args)
+        libv = lib()
+        self.sync()
+        lerr = max(float((g - r).abs().max()) for g, r in zip(libv, ref)) if ref[0].numel() else 0.0
+        if lerr > 1e-4:   # the yardstick computes the same function, in another order
+            raise AssertionError(f"sample_gradients ({label}): grid_sample differs by {lerr}")
+        P, Hs, Ws = args[0].shape
         self.note("sample_gradients", 0.0, lambda: dsm.sample_gradients(*args),
-                  lambda: dsm.sample_gradients_plain(*args), timed)
+                  lambda: dsm.sample_gradients_plain(*args),
+                  bounds.sample_gradients_work(P, Hs, Ws, *args[3].shape), lib, timed)
 
     def octave(self, base, taps, label, timed=True):
+        from siftgpu_tpu_torch import bounds
         from siftgpu_tpu_torch.ops import pyramid_kernel as pk
 
         got = pk.blur_octave_fused(base, taps)
@@ -291,12 +380,15 @@ class Parity:
         if not torch_equal_bits(got[0][:, 0], base):
             raise AssertionError(f"blur_octave_fused ({label}): level 0 is not the base")
         self.note("blur_octave_fused", err, lambda: pk.blur_octave_fused(base, taps),
-                  lambda: pk.blur_octave_fused_plain(base, taps), timed)
+                  lambda: pk.blur_octave_fused_plain(base, taps),
+                  bounds.blur_octave_work(*base.shape, [(len(t) - 1) // 2 for t in taps]),
+                  octave_library(base, taps, ref[0]) if timed else None, timed)
         return err
 
     def gated(self, args, label, timed=True):
         import torch
 
+        from siftgpu_tpu_torch import bounds
         from siftgpu_tpu_torch.ops import match_kernel as mk
 
         got = mk.match_best2_gated(*args)
@@ -309,7 +401,70 @@ class Parity:
         log(f"  match_best2_gated ({label}, gate {args[6]!r}, {tuple(args[0].shape)} x "
             f"{tuple(args[1].shape)}): identical; {gated_out} live rows fully gated out")
         self.note("match_best2_gated", 0.0, lambda: mk.match_best2_gated(*args),
-                  lambda: mk.match_best2_gated_plain(*args), timed)
+                  lambda: mk.match_best2_gated_plain(*args),
+                  bounds.match_best2_work(*args[0].shape[:2], args[1].shape[1], args[0].shape[2],
+                                          gate=args[6]), timed=timed)
+
+
+def octave_library(base, taps, gauss):
+    """The octave's blurs by cuDNN: the 2 (L-1) convolutions of the plain
+    chain alone, on inputs padded beforehand from the chain's own levels
+    (`gauss`).  Not one call: no single PyTorch call builds an octave."""
+    import torch
+    import torch.nn.functional as F
+
+    from siftgpu_tpu_torch.core.precision import full_f32
+
+    ops = []
+    with full_f32():
+        for s, t in enumerate(taps):
+            w = torch.as_tensor(np.asarray(t, np.float32), device=base.device)
+            r = (w.shape[0] - 1) // 2
+            x = F.pad(gauss[:, s][:, None], (r, r, 0, 0), mode="replicate")
+            y = F.pad(F.conv2d(x, w.view(1, 1, 1, -1)), (0, 0, r, r), mode="replicate")
+            ops.append((x, w.view(1, 1, 1, -1), y, w.view(1, 1, -1, 1)))
+
+    def run():
+        with full_f32():
+            for x, wr, y, wc in ops:
+                F.conv2d(x, wr)
+                F.conv2d(y, wc)
+    return run
+
+
+def grad_library(gauss, S: int, min_h: int, min_w: int):
+    """grad_stencil's function by PyTorch: `torch.gradient` of Gaussian
+    levels 1..S (central differences halved, one-sided at the edges), cast
+    to bf16, zero-padded to (min_h, min_w) where the plane is smaller."""
+    import torch
+    import torch.nn.functional as F
+
+    gy, gx = torch.gradient(gauss[:, 1 : S + 1], dim=(2, 3))
+    H, W = gauss.shape[-2:]
+    pad = (0, max(0, min_w - W), 0, max(0, min_h - H))
+    if any(pad):
+        gx, gy = F.pad(gx, pad), F.pad(gy, pad)
+    return gx.to(torch.bfloat16), gy.to(torch.bfloat16)
+
+
+def sample_library(gx, gy, plane, py, px):
+    """sample_gradients' function as one `F.grid_sample` call: both planes
+    (widened to f32 beforehand) as the channels of one volume, each sample a
+    trilinear lookup at (x, y, its plane) with border clamping and corner
+    alignment, i.e. the clamped bilinear sample of the kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    P, H, W = gx.shape
+    vol = torch.stack([gx, gy]).to(torch.float32)[None]            # [1, 2, P, H, W]
+    z = plane.to(torch.float32)[:, None].expand_as(px)
+    norm = lambda v, n: v * (2.0 / max(n - 1, 1)) - 1.0
+    grid = torch.stack([norm(px, W), norm(py, H), norm(z, P)], -1)[None, None]
+
+    def run():
+        out = F.grid_sample(vol, grid, mode="bilinear", padding_mode="border", align_corners=True)
+        return out[0, 0, 0], out[0, 1, 0]
+    return run
 
 
 @contextlib.contextmanager
@@ -392,19 +547,45 @@ def edge_cases(dev, sync):
         log(f"  edge case {h}x{w}{' flat' if flat else ''}: octaves, detect, grad, orient match "
             "the plain versions")
 
-    # the octave kernel: odd sizes, a tail of rows, a plane smaller than the
-    # cumulative halo (every tap clamps), a flat plane; batch independence
-    cfg = SiftConfig()
-    taps = [cfg.gaussian_taps(float(s)) for s in cfg.incremental_sigmas()]
+    # the octave kernel: odd sizes, a tail of rows, ragged 64x64 tiles, a
+    # plane smaller than one tile and than its radii (every tap clamps; a
+    # single block), a flat plane; the radii of dog_levels 2 and 5 (the
+    # generic tap loop: radii 19; 4, 6, 9); batch independence
     rng = np.random.default_rng(4)
-    par = Parity(cfg, sync)
-    for label, shape, flat in (("33x47", (1, 33, 47), False), ("150x200, B=2", (2, 150, 200), False),
-                               ("below the halo", (2, 20, 26), False), ("flat", (2, 64, 64), True)):
+    for label, shape, flat, S in (
+            ("33x47", (1, 33, 47), False, 3), ("150x200, B=2", (2, 150, 200), False, 3),
+            ("below the halo", (2, 20, 26), False, 3), ("one tile, B=1", (1, 20, 26), False, 3),
+            ("ragged tiles", (2, 65, 129), False, 3), ("flat", (2, 64, 64), True, 3),
+            ("dog_levels 2", (2, 97, 131), False, 2), ("dog_levels 5", (2, 97, 131), False, 5)):
+        cfg = SiftConfig(dog_levels=S)
+        taps = [cfg.gaussian_taps(float(s)) for s in cfg.incremental_sigmas()]
+        par = Parity(cfg, sync)
         base = np.full(shape, 0.5, np.float32) if flat else rng.random(shape, np.float32)
         base = torch.from_numpy(base).to(dev)
         err = par.octave(base, taps, f"edge {label}", timed=False)
         octave_batch_independence(base, taps, f"edge {label}")
-        log(f"  blur_octave_fused ({label} {shape}): max abs err {err:.3g}, batch-independent")
+        log(f"  blur_octave_fused ({label} {shape}, radii {[(len(t) - 1) // 2 for t in taps]}): "
+            f"max abs err {err:.3g}, batch-independent")
+
+    # orient_sample: N = 1, 7, 9 (blocks of 8 keypoints), all masked, the
+    # plane corners, and the built windows of tests/test_torch_orient.py
+    # (an empty histogram, an exact tie, a peak at exactly 0.8 max, one
+    # step below it), where theta and validity must be equal
+    # (bins over 32 lanes: 36, and 10 and 64 against the kernel's wraparound
+    # and its nb <= 64 limit)
+    cases = [(f"N={n}", fixtures.orient_keypoints(n, seed=n, masked=0.3, corners=True), 36, False)
+             for n in (1, 7, 9)]
+    cases += [(f"N=9, {nb} bins", fixtures.orient_keypoints(9, seed=9, masked=0.3), nb, False)
+              for nb in (10, 64)]
+    cases += [("all masked", fixtures.orient_keypoints(9, seed=5, masked=1.0), 36, False),
+              ("built windows", fixtures.orient_windows(), 36, True)]
+    for label, d, nb, exact in cases:
+        par = Parity(SiftConfig(orientation_bins=nb), sync)
+        P, hh, ww = d["gx"].shape
+        tt = lambda a: torch.from_numpy(a).to(dev)
+        par.orient_args((tt(d["gx"]).to(torch.bfloat16), tt(d["gy"]).to(torch.bfloat16),
+                         tt(d["plane"]), tt(d["y"]), tt(d["x"]), tt(d["sigma"]), par.cfg,
+                         tt(d["mask"]), hh, ww), f"edge: {label}", timed=False, exact=exact)
 
     rng = np.random.default_rng(5)
     d0 = rng.integers(0, 256, (2, 100, 128), dtype=np.uint8)
@@ -707,7 +888,7 @@ def run(device: str, h=H, w=W, b=B, k=K):
     only to rehearse the control flow, where both routes are plain)."""
     import torch
 
-    from siftgpu_tpu_torch import (MatchConfig, SiftConfig, extract_features,
+    from siftgpu_tpu_torch import (MatchConfig, SiftConfig, bounds, extract_features,
                                    match_descriptors_batch)
     from siftgpu_tpu_torch.frontend import detect, extract, orient, pyramid
     from siftgpu_tpu_torch.ops import _build
@@ -814,30 +995,41 @@ def run(device: str, h=H, w=W, b=B, k=K):
         c1, f1, f2, c2 = (time_ms(fn, sync, 10) for fn in (chain, fused, fused, chain))
         log(f"  pyramid {b} x {h}x{w}: octave kernel {(f1 + f2) / 2:.3f} ms, "
             f"cuDNN chain {(c1 + c2) / 2:.3f} ms (runs {f1:.3f}/{f2:.3f}, {c1:.3f}/{c2:.3f})")
-        for o, (kf, pl) in enumerate(par.calls["blur_octave_fused"]):
-            p1, k1, k2, p2 = (time_ms(fn, sync, 10) for fn in (pl, kf, kf, pl))
-            log(f"  blur_octave_fused octave {o}: kernel {(k1 + k2) / 2:.4f} ms, "
-                f"cuDNN chain {(p1 + p2) / 2:.4f} ms")
+        for o, c in enumerate(par.calls["blur_octave_fused"]):
+            p1, k1, l1, k2, l2, p2 = (time_ms(fn, sync, 10)
+                                      for fn in (c.plain, c.kern, c.lib, c.kern, c.lib, c.plain))
+            dk, dl = device_ms([c.kern], sync), device_ms([c.lib], sync)
+            log(f"  blur_octave_fused octave {o}: kernel {(k1 + k2) / 2:.4f} ms (device "
+                f"{dk:.4f}), cuDNN chain {(p1 + p2) / 2:.4f} ms, its convolutions alone "
+                f"{(l1 + l2) / 2:.4f} ms (device {dl:.4f}); bound {bounds.bound([c.work])[0]:.4f} ms")
         for label, fn in twoview_calls.items():
             log(f"  two-view {label}: {time_ms(fn, sync, 5):.3f} ms")
     for name, kern in _build.KERNELS.items():
-        ms = plain_ms = None
+        calls = par.calls[name]
+        bound_ms, bound_by = bounds.bound(c.work for c in calls)
+        rec = {"name": name, "route": "cuda",
+               "source": f"siftgpu_tpu_torch/csrc/{kern.source.name}",
+               "replaces": REPLACES[name], "launches": launches[name],
+               "max_abs_err": par.err[name], "ms": None, "plain_ms": None,
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+               "device_ms": None, "plain_device_ms": None, "library_device_ms": None}
         if timing:
-            calls = par.calls[name]
-            # plain, kernel, kernel, plain over all of the main path's shapes
-            p1 = sum(time_ms(pl, sync, 5) for _, pl in calls)
-            k1 = sum(time_ms(kf, sync, 5) for kf, _ in calls)
-            k2 = sum(time_ms(kf, sync, 5) for kf, _ in calls)
-            p2 = sum(time_ms(pl, sync, 5) for _, pl in calls)
-            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-            log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+            kf, pl = [c.kern for c in calls], [c.plain for c in calls]
+            lb = [c.lib for c in calls] if all(c.lib for c in calls) else []
+            # CUDA events around back-to-back calls (the host's launch cost
+            # included), plain, kernel, library, kernel, library, plain,
+            # summed over the path's calls; then device time alone
+            t = lambda fns: sum(time_ms(fn, sync, 5) for fn in fns)
+            p1, k1, l1, k2, l2, p2 = (t(fns) for fns in (pl, kf, lb, kf, lb, pl))
+            rec.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                       device_ms=device_ms(kf, sync), plain_device_ms=device_ms(pl, sync))
+            if lb:
+                rec.update(library_ms=(l1 + l2) / 2, library_device_ms=device_ms(lb, sync))
+            log(f"  {name}: kernel {rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), plain "
+                f"{rec['plain_ms']:.4f} ms (device {rec['plain_device_ms']:.4f}), library "
+                f"{rec['library_ms'] if lb else 'none'}, bound {bound_ms:.4f} ms ({bound_by}) "
                 f"(sum over {len(calls)} calls of its path)")
-        records.append({
-            "name": name, "route": "cuda",
-            "source": f"siftgpu_tpu_torch/csrc/{kern.source.name}",
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": par.err[name], "ms": ms, "plain_ms": plain_ms,
-        })
+        records.append(rec)
     return records
 
 

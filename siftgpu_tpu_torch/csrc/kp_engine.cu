@@ -1,5 +1,5 @@
 // orient_sample: fused orientation assignment + descriptor gradient sampling,
-// one thread block per keypoint.
+// one warp per keypoint.
 //
 // Replaces the Pallas kernel siftgpu_tpu/ops/kp_engine.py::orient_sample
 // (bodies `_kernel` and `_compute_block`).  Semantics are those of the plain
@@ -8,21 +8,39 @@
 // lanes, packed-u32 gradient planes, the block-size knob) are not carried
 // over: they are layout, not semantics.
 //
-// What bounds it on the H100: per keypoint a (2R+1)^2 bf16 window (35^2 at
-// the default config, 4.9 KB) and up to 2 x 256 bilinear samples of 4 taps
-// each; the gathers are scattered, so it is bound by memory latency and
-// the per-pixel atan2/sqrt/polynomial, not by bandwidth.  The simple design:
-//   1. the block gathers the window into shared memory, upcast to f32;
-//   2. each of the 256 threads builds a private 36-bin histogram of its
-//      pixels in shared memory (column tid of a [nb][256] array, so no two
-//      threads share a bank or an address); the private histograms are
-//      summed in a fixed order (32-thread partials, then 8 partials per
-//      bin).  Shared-memory float atomics would make the result depend on
-//      the order in which threads arrive;
-//   3. 36 threads smooth x6; thread 0 selects the peaks exactly as the plain
-//      version (stable ranking, ties to the lowest bin) and refines them;
-//   4. per orientation slot that is sampled, one thread per grid sample
-//      does the bilinear gather from the bf16 plane in global memory.
+// What bounds it on the H100: bytes, by its count (the sgx/sgy outputs,
+// 2 x 512 f32 per keypoint, 65 MB for the main path's 15,872 keypoints,
+// beside ~20 MB of bf16 gradient planes: ~25 us at 3.35 TB/s); the window
+// math (1,225 pixels of atan2, sqrt and a degree-7 polynomial per keypoint)
+// is ~1 GFLOP.  In practice each keypoint is a short dependent chain —
+// gather the window, histogram, smooth, pick peaks, gather the samples — so
+// what sets the time is latency and how many keypoints are in flight.  The
+// first design gave each keypoint a 256-thread block with 36 KB of private
+// histograms, ~12 block barriers and a peak search on one thread.  This one:
+//   - one warp per keypoint, 8 keypoints per 256-thread block, no block
+//     barrier after the start: a warp's keypoint is its own; registers
+//     capped so 4 blocks (32 warps) fit an SM;
+//   - keypoints are strided over the blocks (warp w of block b takes
+//     keypoint w * blocks + b), so an octave's live keypoints, which come
+//     first, spread over every SM;
+//   - only the window's pixels that can lie inside the weighting circle are
+//     visited (the others have weight 0 and add nothing): ~15x15 of the 35x35
+//     at a typical scale.  They are read straight from the bf16 planes (lanes
+//     on consecutive pixels of a row), 8 per lane loaded before any is used:
+//     a keypoint is a chain of dependent steps, and latency is its longest
+//     link;
+//   - each lane keeps a private 36-bin histogram in the warp's [nb][32]
+//     shared slice (column = lane: no atomics, no bank conflicts); bin b is
+//     then summed by one lane over the 32 partials in a fixed rotated order
+//     (deterministic, conflict-free);
+//   - smoothing x6 in the warp's slice with __syncwarp; the max and each
+//     peak by warp reductions: a peak is the arg-max of an ordered key of
+//     its value, ties to the lowest bin (the plain version's stable
+//     descending sort); the parabola is computed by every lane alike;
+//   - the samples of each slot: lane g takes samples g, g+32, ..., 2 at a
+//     time with their 16 taps loaded first; the sgx/sgy stores of a warp are
+//     coalesced; window and grid indices come from float reciprocals, not
+//     integer division.
 // Compiled with -fmad=false, so every expression rounds as in the plain
 // version; atan2f/cosf/sinf may differ from PyTorch's CPU functions in the
 // last ulp, which the parity budgets allow for.
@@ -32,9 +50,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kWarps = 8;             // keypoints per block
+constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxOri = 8;
-constexpr int kMaxBins = 64;
+constexpr int kMaxBins = 64;          // two bins per lane at most
+constexpr int kBatch = 8;             // window pixels per lane loaded at once
+constexpr int kSamples = 2;           // samples per lane loaded at once
+constexpr int kMinBlocks = 4;         // blocks per SM the registers must allow
 
 __constant__ float kExpW[8] = {
     2.1755081222e-05f, 5.1727565826e-04f, 5.5559910437e-03f,
@@ -49,12 +71,30 @@ __device__ __forceinline__ float exp_window(float x) {
   return acc;
 }
 
+// a key whose unsigned order is the float order (-inf lowest of the floats);
+// 0 is below every float and marks a bin already chosen
+__device__ __forceinline__ unsigned ordered(float f) {
+  const unsigned u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
 struct Params {
-  int Hp, Wp, h_true, w_true, R, nb, nori, G;
+  int Hp, Wp, h_true, w_true, R, nb, nori, G, N;
   float sig_f, rad_f, peak, spacing, spc_cell, smax, bin_scale, two_pi;
 };
 
-__global__ void __launch_bounds__(kThreads) orient_sample_kernel(
+// floats of shared memory per warp: histograms, two smoothing buffers,
+// and the chosen angles
+__host__ __device__ inline int warp_floats(int nb) { return nb * 32 + 2 * nb + kMaxOri; }
+
+// q = n / d and n - q d for 0 <= n < 2^20, d >= 1, from the float reciprocal
+// (the quotient's fraction is at least 0.5 / d away from the next integer,
+// far above the product's rounding error)
+__device__ __forceinline__ int div_small(int n, float inv_d) {
+  return static_cast<int>((static_cast<float>(n) + 0.5f) * inv_d);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks) orient_sample_kernel(
     const __nv_bfloat16* __restrict__ gx, const __nv_bfloat16* __restrict__ gy,
     const int* __restrict__ plane, const float* __restrict__ ky,
     const float* __restrict__ kx, const float* __restrict__ sigma_in,
@@ -62,30 +102,40 @@ __global__ void __launch_bounds__(kThreads) orient_sample_kernel(
     uint8_t* __restrict__ haspk_out, float* __restrict__ sgx,
     float* __restrict__ sgy, Params P) {
   extern __shared__ float smem[];
-  __shared__ float s_theta[kMaxOri];
-  __shared__ int s_has[kMaxOri];
-  const int n = blockIdx.x, tid = threadIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // keypoints strided over the blocks: live keypoints, which come first
+  // in each octave, spread over every SM
+  const int n = warp * gridDim.x + blockIdx.x;
+  if (n >= P.N) return;
   const int nb = P.nb, nori = P.nori, G2 = P.G * P.G;
-  const int win = 2 * P.R + 1, P2 = win * win;
+  const int win = 2 * P.R + 1;
+  const float inv_G = 1.0f / static_cast<float>(P.G);
   const size_t out0 = static_cast<size_t>(n) * nori * G2;
 
   if (!mask[n]) {  // masked keypoint: zeros everywhere
-    if (tid < nori) {
-      theta_out[n * nori + tid] = 0.0f;
-      haspk_out[n * nori + tid] = 0;
+    if (lane < nori) {
+      theta_out[n * nori + lane] = 0.0f;
+      haspk_out[n * nori + lane] = 0;
     }
-    for (int k = tid; k < nori * G2; k += kThreads) {
-      sgx[out0 + k] = 0.0f;
-      sgy[out0 + k] = 0.0f;
+    if ((nori * G2) % 4 == 0) {  // 16-byte stores: out0 is a multiple of 4
+      float4* zx = reinterpret_cast<float4*>(sgx + out0);
+      float4* zy = reinterpret_cast<float4*>(sgy + out0);
+      for (int k = lane; k < nori * G2 / 4; k += 32) {
+        zx[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        zy[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    } else {
+      for (int k = lane; k < nori * G2; k += 32) {
+        sgx[out0 + k] = 0.0f;
+        sgy[out0 + k] = 0.0f;
+      }
     }
     return;
   }
 
-  float* wgx = smem;                       // [P2]
-  float* wgy = wgx + P2;                   // [P2]
-  float* hist = wgy + P2;                  // [nb][kThreads] private histograms
-  float* part = hist + nb * kThreads;      // [nb][8]
-  float* hs = part + nb * 8;               // [2][nb] smoothing buffers
+  float* hist = smem + warp * warp_floats(nb);  // [nb][32] private histograms
+  float* hs = hist + nb * 32;                   // [2][nb] smoothing buffers
+  float* s_theta = hs + 2 * nb;                 // [kMaxOri]
 
   const float y = ky[n], x = kx[n];
   const float sig = fminf(sigma_in[n], P.smax);
@@ -96,128 +146,168 @@ __global__ void __launch_bounds__(kThreads) orient_sample_kernel(
   const __nv_bfloat16* pgx = gx + pbase;
   const __nv_bfloat16* pgy = gy + pbase;
 
-  // ---- 1. window -> shared (f32) ----
-  for (int p = tid; p < P2; p += kThreads) {
-    const int r = p / win, c = p % win;
-    const size_t g = static_cast<size_t>(sy + r) * P.Wp + (sx + c);
-    wgx[p] = __bfloat162float(pgx[g]);
-    wgy[p] = __bfloat162float(pgy[g]);
-  }
-  for (int b = 0; b < nb; ++b) hist[b * kThreads + tid] = 0.0f;
-  __syncthreads();
-
-  // ---- 2. private histograms, then a fixed-order sum ----
+  // ---- 1. private histograms over the window, read from the bf16 planes ----
+  for (int b = 0; b < nb; ++b) hist[b * 32 + lane] = 0.0f;
   const float sw = P.sig_f * sig;
   const float radius = P.rad_f * sw;
   const float rad2 = radius * radius;
   const float den = 2.0f * (sw * sw);
-  for (int p = tid; p < P2; p += kThreads) {
-    const int r = p / win, c = p % win;
-    const int row = sy + r, col = sx + c;
-    const float oy = static_cast<float>(row) - y;
-    const float ox = static_cast<float>(col) - x;
-    const float r2 = oy * oy + ox * ox;
-    float w = exp_window(-r2 / den);
-    w = r2 <= rad2 ? w : 0.0f;
-    w = w * (row < P.h_true ? 1.0f : 0.0f);
-    const float vx = wgx[p], vy = wgy[p];
-    const float mag = sqrtf(vx * vx + vy * vy);
-    float ang = atan2f(vy, vx);
-    if (ang < 0.0f) ang = ang + P.two_pi;
-    const int bin = min(max(static_cast<int>(ang * P.bin_scale), 0), nb - 1);
-    hist[bin * kThreads + tid] += w * mag;
+  // Only pixels inside the radius circle have a weight; the others add +0 to
+  // a bin, which changes nothing.  So walk the window's rows and columns
+  // that can hold such pixels (one pixel of margin for rounding); the
+  // weight test below stays exact.  Lane l takes box pixels l, l+32, ...;
+  // kBatch of them loaded before any is used.
+  const int by0 = max(sy, static_cast<int>(floorf(y - radius)) - 1);
+  const int by1 = min(sy + win - 1, static_cast<int>(ceilf(y + radius)) + 1);
+  const int bx0 = max(sx, static_cast<int>(floorf(x - radius)) - 1);
+  const int bx1 = min(sx + win - 1, static_cast<int>(ceilf(x + radius)) + 1);
+  const int bw = max(bx1 - bx0 + 1, 1);
+  const int P2 = (by1 >= by0 && bx1 >= bx0) ? (by1 - by0 + 1) * bw : 0;
+  const float inv_bw = 1.0f / static_cast<float>(bw);
+  for (int p0 = lane; p0 < P2; p0 += 32 * kBatch) {
+    float bx[kBatch], by[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int p = min(p0 + 32 * u, P2 - 1);
+      const int r = div_small(p, inv_bw), c = p - r * bw;
+      const size_t g = static_cast<size_t>(by0 + r) * P.Wp + (bx0 + c);
+      bx[u] = __bfloat162float(pgx[g]);
+      by[u] = __bfloat162float(pgy[g]);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int p = p0 + 32 * u;
+      if (p >= P2) break;
+      const int r = div_small(p, inv_bw), c = p - r * bw;
+      const int row = by0 + r, col = bx0 + c;
+      const float vx = bx[u], vy = by[u];
+      const float oy = static_cast<float>(row) - y;
+      const float ox = static_cast<float>(col) - x;
+      const float r2 = oy * oy + ox * ox;
+      float w = exp_window(-r2 / den);
+      w = r2 <= rad2 ? w : 0.0f;
+      w = w * (row < P.h_true ? 1.0f : 0.0f);
+      const float mag = sqrtf(vx * vx + vy * vy);
+      float ang = atan2f(vy, vx);
+      if (ang < 0.0f) ang = ang + P.two_pi;
+      const int bin = min(max(static_cast<int>(ang * P.bin_scale), 0), nb - 1);
+      hist[bin * 32 + lane] += w * mag;
+    }
   }
-  __syncthreads();
-  for (int k = tid; k < nb * 8; k += kThreads) {
-    const int b = k >> 3, q = k & 7;
+  __syncwarp();
+  // bin b: the sum of its 32 partials, lane b, in a fixed rotated order
+  for (int b = lane; b < nb; b += 32) {
     float s = 0.0f;
-    for (int i = 0; i < 32; ++i) s += hist[b * kThreads + q * 32 + ((i + k) & 31)];
-    part[k] = s;
+    for (int i = 0; i < 32; ++i) s += hist[b * 32 + ((i + b) & 31)];
+    hs[b] = s;
   }
-  __syncthreads();
-  if (tid < nb) {
-    float s = 0.0f;
-    for (int q = 0; q < 8; ++q) s += part[tid * 8 + q];
-    hs[tid] = s;
-  }
-  __syncthreads();
+  __syncwarp();
 
-  // ---- 3. smoothing x6, peaks, parabola refinement ----
+  // ---- 2. smoothing x6, peaks, parabola refinement ----
   float* cur = hs;
   float* nxt = hs + nb;
   for (int round = 0; round < 6; ++round) {
-    if (tid < nb)
-      nxt[tid] = ((cur[(tid + nb - 1) % nb] + cur[tid]) + cur[(tid + 1) % nb]) / 3.0f;
-    __syncthreads();
+    for (int b = lane; b < nb; b += 32)
+      nxt[b] = ((cur[(b + nb - 1) % nb] + cur[b]) + cur[(b + 1) % nb]) / 3.0f;
+    __syncwarp();
     float* t = cur; cur = nxt; nxt = t;
   }
-  if (tid == 0) {
-    float mx = -INFINITY;
-    for (int b = 0; b < nb; ++b) mx = fmaxf(mx, cur[b]);
-    unsigned long long chosen = 0ull;
-    for (int o = 0; o < nori; ++o) {
-      int idx = -1;
-      float m = -INFINITY;
-      for (int b = 0; b < nb; ++b) {
-        if ((chosen >> b) & 1ull) continue;
-        const float h = cur[b];
-        const bool pk = (h > cur[(b + nb - 1) % nb]) && (h > cur[(b + 1) % nb]) &&
-                        (h >= P.peak * mx) && (mx > 0.0f);
-        const float pv = pk ? h : -INFINITY;
-        if (idx < 0 || pv > m) { m = pv; idx = b; }
-      }
-      chosen |= 1ull << idx;
-      const bool has = m != -INFINITY;
-      const float li = cur[(idx + nb - 1) % nb], ci = cur[idx], ri = cur[(idx + 1) % nb];
-      const float denom = (li - 2.0f * ci) + ri;
-      const float d = fabsf(denom) < 1e-12f ? 0.0f : (0.5f * (li - ri)) / denom;
-      float th = (P.two_pi * ((static_cast<float>(idx) + 0.5f) + d)) / static_cast<float>(nb);
-      if (th >= P.two_pi) th = th - P.two_pi;
-      th = has ? th : 0.0f;
+  float mx = -INFINITY;
+  for (int b = lane; b < nb; b += 32) mx = fmaxf(mx, cur[b]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  unsigned key[2] = {0u, 0u};  // bins lane and lane + 32
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int b = lane + 32 * i;
+    if (b < nb) {
+      const float h = cur[b];
+      const bool pk = (h > cur[(b + nb - 1) % nb]) && (h > cur[(b + 1) % nb]) &&
+                      (h >= P.peak * mx) && (mx > 0.0f);
+      key[i] = ordered(pk ? h : -INFINITY);
+    }
+  }
+  const unsigned no_peak = ordered(-INFINITY);
+  unsigned has_bits = 0u;
+  for (int o = 0; o < nori; ++o) {
+    const unsigned m = __reduce_max_sync(0xffffffffu, max(key[0], key[1]));
+    const int cand = (m != 0u && key[0] == m) ? lane
+                     : (m != 0u && key[1] == m) ? lane + 32 : kMaxBins;
+    const int idx = min(__reduce_min_sync(0xffffffffu, cand), nb - 1);
+    if (idx == lane) key[0] = 0u;
+    if (idx == lane + 32) key[1] = 0u;
+    const bool has = m > no_peak;
+    const float li = cur[(idx + nb - 1) % nb], ci = cur[idx], ri = cur[(idx + 1) % nb];
+    const float denom = (li - 2.0f * ci) + ri;
+    const float d = fabsf(denom) < 1e-12f ? 0.0f : (0.5f * (li - ri)) / denom;
+    float th = (P.two_pi * ((static_cast<float>(idx) + 0.5f) + d)) / static_cast<float>(nb);
+    if (th >= P.two_pi) th = th - P.two_pi;
+    th = has ? th : 0.0f;
+    has_bits |= (has ? 1u : 0u) << o;
+    if (lane == 0) {
       s_theta[o] = th;
-      s_has[o] = has;
       theta_out[n * nori + o] = th;
       haspk_out[n * nori + o] = has ? 1 : 0;
     }
   }
-  __syncthreads();
+  __syncwarp();
 
-  // ---- 4. rotated-grid bilinear samples, zero outside the true image ----
+  // ---- 3. rotated-grid bilinear samples, zero outside the true image ----
+  // lane l takes samples l, l+32, ...; the taps of kSamples of them are
+  // loaded before any is combined
   const float half = (P.G - 1) * 0.5f;
   const float spc = (P.spacing * sig) / P.spc_cell;
   for (int o = 0; o < nori; ++o) {
-    const bool keep = (o == 0) || s_has[o];
+    float* ox_out = sgx + out0 + static_cast<size_t>(o) * G2;
+    float* oy_out = sgy + out0 + static_cast<size_t>(o) * G2;
+    if (o > 0 && !((has_bits >> o) & 1u)) {   // a slot without a peak: zeros
+      for (int g = lane; g < G2; g += 32) {
+        ox_out[g] = 0.0f;
+        oy_out[g] = 0.0f;
+      }
+      continue;
+    }
     const float th = s_theta[o];
     const float ct = cosf(th), st = sinf(th);
-    for (int g = tid; g < G2; g += kThreads) {
-      float ox = 0.0f, oyv = 0.0f;
-      if (keep) {
-        const float u = (static_cast<float>(g % P.G) - half) * spc;
-        const float v = (static_cast<float>(g / P.G) - half) * spc;
-        const float px = (x + ct * u) - st * v;
-        const float py = (y + st * u) + ct * v;
+    for (int g0 = lane; g0 < G2; g0 += 32 * kSamples) {
+      float tx[kSamples][4], ty[kSamples][4], fxs[kSamples], fys[kSamples], ms[kSamples];
+#pragma unroll
+      for (int u = 0; u < kSamples; ++u) {
+        const int g = min(g0 + 32 * u, G2 - 1);
+        const int gr = div_small(g, inv_G);
+        const float uu = (static_cast<float>(g - gr * P.G) - half) * spc;
+        const float v = (static_cast<float>(gr) - half) * spc;
+        const float px = (x + ct * uu) - st * v;
+        const float py = (y + st * uu) + ct * v;
         const int x0 = static_cast<int>(fminf(fmaxf(floorf(px), 0.0f), static_cast<float>(P.Wp - 1)));
         const int y0 = static_cast<int>(fminf(fmaxf(floorf(py), 0.0f), static_cast<float>(P.Hp - 1)));
         const int x1 = min(x0 + 1, P.Wp - 1), y1 = min(y0 + 1, P.Hp - 1);
-        const float fx = fminf(fmaxf(px - static_cast<float>(x0), 0.0f), 1.0f);
-        const float fy = fminf(fmaxf(py - static_cast<float>(y0), 0.0f), 1.0f);
+        fxs[u] = fminf(fmaxf(px - static_cast<float>(x0), 0.0f), 1.0f);
+        fys[u] = fminf(fmaxf(py - static_cast<float>(y0), 0.0f), 1.0f);
         const bool inb = (px >= 0.0f) && (px <= static_cast<float>(P.w_true - 1)) &&
                          (py >= 0.0f) && (py <= static_cast<float>(P.h_true - 1));
-        const size_t i00 = static_cast<size_t>(y0) * P.Wp + x0;
-        const size_t i01 = static_cast<size_t>(y0) * P.Wp + x1;
-        const size_t i10 = static_cast<size_t>(y1) * P.Wp + x0;
-        const size_t i11 = static_cast<size_t>(y1) * P.Wp + x1;
-        const float a = 1.0f - fy, bb = 1.0f - fx;
-        const float vx = (((__bfloat162float(pgx[i00]) * a) * bb + (__bfloat162float(pgx[i01]) * a) * fx)
-                          + (__bfloat162float(pgx[i10]) * fy) * bb) + (__bfloat162float(pgx[i11]) * fy) * fx;
-        const float vy = (((__bfloat162float(pgy[i00]) * a) * bb + (__bfloat162float(pgy[i01]) * a) * fx)
-                          + (__bfloat162float(pgy[i10]) * fy) * bb) + (__bfloat162float(pgy[i11]) * fy) * fx;
-        const float m = inb ? 1.0f : 0.0f;
-        ox = vx * m;
-        oyv = vy * m;
+        ms[u] = inb ? 1.0f : 0.0f;
+        const size_t i[4] = {static_cast<size_t>(y0) * P.Wp + x0, static_cast<size_t>(y0) * P.Wp + x1,
+                             static_cast<size_t>(y1) * P.Wp + x0, static_cast<size_t>(y1) * P.Wp + x1};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          tx[u][k] = __bfloat162float(pgx[i[k]]);
+          ty[u][k] = __bfloat162float(pgy[i[k]]);
+        }
       }
-      sgx[out0 + static_cast<size_t>(o) * G2 + g] = ox;
-      sgy[out0 + static_cast<size_t>(o) * G2 + g] = oyv;
+#pragma unroll
+      for (int u = 0; u < kSamples; ++u) {
+        const int g = g0 + 32 * u;
+        if (g >= G2) break;
+        const float fx = fxs[u], fy = fys[u];
+        const float a = 1.0f - fy, bb = 1.0f - fx;
+        const float vx = (((tx[u][0] * a) * bb + (tx[u][1] * a) * fx) + (tx[u][2] * fy) * bb)
+                         + (tx[u][3] * fy) * fx;
+        const float vy = (((ty[u][0] * a) * bb + (ty[u][1] * a) * fx) + (ty[u][2] * fy) * bb)
+                         + (ty[u][3] * fy) * fx;
+        ox_out[g] = vx * ms[u];
+        oy_out[g] = vy * ms[u];
+      }
     }
   }
 }
@@ -231,19 +321,18 @@ extern "C" int orient_sample_launch(
     int Wp, int h_true, int w_true, int R, int nb, int nori, int G,
     float sig_f, float rad_f, float peak, float spacing, float spc_cell,
     float smax, float bin_scale, float two_pi, cudaStream_t stream) {
-  if (nori > kMaxOri || nb > kMaxBins || nb < 3 || N <= 0) return cudaErrorInvalidValue;
-  const int win = 2 * R + 1;
-  const size_t smem =
-      sizeof(float) * (2 * static_cast<size_t>(win) * win + nb * kThreads + nb * 8 + 2 * nb);
+  if (nori > kMaxOri || nori < 1 || nb > kMaxBins || nb < 3 || N <= 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * kWarps * static_cast<size_t>(warp_floats(nb));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         orient_sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  Params P{Hp, Wp, h_true, w_true, R, nb, nori, G,
+  Params P{Hp, Wp, h_true, w_true, R, nb, nori, G, N,
            sig_f, rad_f, peak, spacing, spc_cell, smax, bin_scale, two_pi};
-  orient_sample_kernel<<<N, kThreads, smem, stream>>>(
+  orient_sample_kernel<<<sift_ceil_div(N, kWarps), kThreads, smem, stream>>>(
       gx, gy, plane, ky, kx, sigma, mask, theta, haspk, sgx, sgy, P);
   return static_cast<int>(cudaGetLastError());
 }

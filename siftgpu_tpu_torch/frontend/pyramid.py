@@ -68,12 +68,13 @@ def _pick_octave_impl(cfg: SiftConfig) -> str:
     """Default: "fused" — the octave kernel on a CUDA tensor (the plain
     chain on a CPU tensor).
 
-    Measured by `chip_smoke.py` (CUDA events) on an NVIDIA H100 80GB HBM3
-    at a 700 W power limit, the 5 octaves of a 4 x 480x640 batch: the whole
-    pyramid 1.464 ms with the kernel against 4.791 ms with the cuDNN chain
-    ("xla"); per octave 0.625 / 0.215 / 0.118 / 0.086 / 0.044 ms against
-    0.627 / 0.434 / 0.545 / 0.716 / 0.495 ms.  At octave 0 the two are level:
-    the kernel recomputes each 32x32 tile's 43 px halo at every level."""
+    Measured by `chip_smoke.py` on an NVIDIA H100 80GB HBM3 at a 700 W
+    power limit, the 5 octaves of a 4 x 480x640 batch: the whole pyramid
+    1.410 ms with the kernel against 6.008 ms with the cuDNN chain ("xla")
+    (CUDA events, both set by the host's launches); the card's own time
+    (torch.profiler) per octave 0.0635 / 0.0329 / 0.0327 / 0.0320 / 0.0291
+    ms for the kernel against 0.3270 / 0.1044 / 0.0486 / 0.0475 / 0.0471 ms
+    for the chain's convolutions alone."""
     return "fused"
 
 

@@ -8,6 +8,10 @@ changed source rebuilds, an unchanged one loads, and kernels that share a
 source file (the ungated and gated `match_best2`) share its library.  The
 build happens at a kernel's first launch, never at import; `build_all`
 compiles every library at once, one nvcc per library, in parallel.
+The octave kernel's grid-wide barrier (`cooperative_groups::this_grid()
+.sync()`, launched with `cudaLaunchCooperativeKernel`) needs no `-rdc`; the
+files with `-fmad=false` keep it, and where a kernel wants a fused
+multiply-add it writes `__fmaf_rn` out.
 
 There is no fallback: without `nvcc`, or when the build fails, `Kernel.lib`
 raises.  The plain PyTorch versions run only for CPU tensors, chosen by the

@@ -18,7 +18,8 @@ with the kernel's two conventions: sigma is clamped to `max_detect_sigma`,
 and slots without a peak (and masked keypoints) get zero samples.
 
 `orient_sample(...)` takes the plain version for CPU tensors and the CUDA
-kernel (`csrc/kp_engine.cu`) for CUDA tensors.
+kernel (`csrc/kp_engine.cu`: one warp per keypoint, 8 per block) for CUDA
+tensors.
 """
 
 from __future__ import annotations

@@ -13,11 +13,14 @@ with replicate edges of level s-1 at every level (not a blur of the
 replicated base, which differs near the borders).
 
 `blur_octave_fused(base, taps_list)` takes the plain version for a CPU tensor
-and the CUDA kernel (`csrc/pyramid_octave.cu`: one launch per octave, every
-level in shared memory, built with -fmad=false) for a CUDA tensor.  The plain
-version is the sequential chain of f32 separable convolutions, TF32 off
-(cuDNN on the card).  The two sum the taps in different orders: they agree
-within 1e-5 absolute, the reference's own fused-versus-chain bound.
+and the CUDA kernel (`csrc/pyramid_octave.cu`: one cooperative launch per
+octave whose blocks walk 64x64 tiles level by level, each level read back
+from device memory with only its own radius as halo; `launch_plan` states
+the launch) for a CUDA tensor.  The plain version is the sequential chain
+of f32 separable convolutions, TF32 off (cuDNN on the card).  The kernel
+sums each pass's taps in order with fused multiply-adds, which on an H100
+equals cuDNN's direct convolutions bit for bit; the bound it is held to is
+1e-5 absolute, the reference's own fused-versus-chain bound.
 
 `blur_separable` lives here because it is the plain version's building
 block; `frontend/pyramid.py` uses it for the initial blur as well.
@@ -34,18 +37,20 @@ import torch.nn.functional as F
 from ..core.precision import full_f32
 from . import _build
 
-__all__ = ["blur_separable", "blur_octave_fused", "blur_octave_fused_plain", "KERNEL"]
+__all__ = ["blur_separable", "blur_octave_fused", "blur_octave_fused_plain", "launch_plan",
+           "KERNEL"]
 
 KERNEL = _build.Kernel(
     "blur_octave_fused", "pyramid_octave.cu",
-    {"blur_octave_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    {"blur_octave_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
      + [ctypes.c_void_p]},
     flags=["-fmad=false"],
 )
 
-# csrc/pyramid_octave.cu's limits: tile width, static tap storage, levels,
-# and the shared memory a block may hold (227 KB, less the static arrays)
-_TX, _MAX_TAPS, _MAX_LEVELS = 32, 256, 32
+# csrc/pyramid_octave.cu's constants: output tile, threads per block, static
+# tap storage, levels, and the shared memory a block may hold (227 KB, less
+# the static arrays)
+TILE, THREADS, _MAX_TAPS, _MAX_LEVELS = (64, 64), 256, 256, 32
 _SMEM_BYTES = 232448 - (_MAX_TAPS + 2 * _MAX_LEVELS) * 4
 
 _TAPS_CACHE: dict = {}
@@ -84,36 +89,47 @@ def _taps_operands(taps_list, device):
             raise ValueError("taps: expected 1-D arrays of odd length")
         radii = np.array([(a.shape[0] - 1) // 2 for a in arrs], np.int32)
         _TAPS_CACHE[key] = (torch.from_numpy(np.concatenate(arrs)).to(device),
-                            torch.from_numpy(radii).to(device), int(radii.sum()))
+                            torch.from_numpy(radii).to(device))
     return _TAPS_CACHE[key]
 
 
-def _tile_rows(R: int) -> int:
-    """Output rows per tile: the largest of 32, 16, 8 whose two windows of
-    (rows + 2R) x (32 + 2R) f32 fit in shared memory."""
-    for ty in (32, 16, 8):
-        if 2 * (ty + 2 * R) * (_TX + 2 * R) * 4 <= _SMEM_BYTES:
-            return ty
-    raise ValueError(f"taps: a cumulative halo of {R} px does not fit in shared memory")
+def launch_plan(B: int, H: int, W: int, radii) -> dict:
+    """The octave kernel's launch for a [B, H, W] base and the levels' tap
+    radii, as `csrc/pyramid_octave.cu` sizes it: 64x64 output tiles; level
+    s reads level s-1 with a halo of its own radius `halo[s-1]`; the shared
+    memory holds one input window of the largest radius, (64 + 2r) rows at
+    an odd pitch of (64 + 2r) | 1, beside a (64 + 2r) x 65 row-pass buffer.
+    The grid is at most `tiles` blocks (the C entry caps it at the blocks
+    that fit on the card at once: a cooperative launch)."""
+    radii = [int(r) for r in radii]
+    if not 1 <= len(radii) <= _MAX_LEVELS:
+        raise ValueError(f"taps_list: expected 1..{_MAX_LEVELS} levels, got {len(radii)}")
+    ntaps = sum(2 * r + 1 for r in radii)
+    if ntaps > _MAX_TAPS:
+        raise ValueError(f"taps_list: {ntaps} taps in all, at most {_MAX_TAPS}")
+    th, tw = TILE
+    rmax = max(radii)
+    smem = 4 * (th + 2 * rmax) * (((tw + 2 * rmax) | 1) + tw + 1)
+    if smem > _SMEM_BYTES:
+        raise ValueError(f"taps: a radius of {rmax} px does not fit in shared memory")
+    tiles = B * -(-H // th) * -(-W // tw)
+    return dict(tile=TILE, threads=THREADS, tiles=tiles, smem_bytes=smem,
+                halo=tuple(radii), rmax=rmax, ntaps=ntaps)
 
 
 def _blur_octave_cuda(base: torch.Tensor, taps_list):
     _build.check_tensor(base, "base", torch.float32, 3)
     n = len(taps_list)
-    if not 1 <= n <= _MAX_LEVELS:
-        raise ValueError(f"taps_list: expected 1..{_MAX_LEVELS} levels, got {n}")
-    taps, radii, R = _taps_operands(taps_list, base.device)
-    if taps.shape[0] > _MAX_TAPS:
-        raise ValueError(f"taps_list: {taps.shape[0]} taps in all, at most {_MAX_TAPS}")
-    TY = _tile_rows(R)
     B, H, W = base.shape
+    taps, radii = _taps_operands(taps_list, base.device)
+    plan = launch_plan(B, H, W, [(len(t) - 1) // 2 for t in taps_list])
     gauss = torch.empty((B, n + 1, H, W), dtype=torch.float32, device=base.device)
     dog = torch.empty((B, n, H, W), dtype=torch.float32, device=base.device)
     if gauss.numel() == 0:
         return gauss, dog
     p = _build.ptr
     KERNEL.launch("blur_octave_launch", base.device, p(base), p(taps), p(radii),
-                  p(gauss), p(dog), B, H, W, n, taps.shape[0], R, TY)
+                  p(gauss), p(dog), B, H, W, n, plan["ntaps"], plan["rmax"])
     return gauss, dog
 
 

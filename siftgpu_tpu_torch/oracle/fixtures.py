@@ -1,6 +1,8 @@
 """Synthetic image fixtures: a NumPy copy of `siftgpu_tpu/oracle/fixtures.py`.
 
 The copies are verbatim, so a seed gives the same image in both packages.
+`orient_windows` and `orient_keypoints` are the port's own: gradient
+planes and keypoints for the orientation kernel's edge cases.
 `two_plane_stereo` takes its rotation from the port's `exp_so3` in float32,
 as the reference's does from JAX's with 64-bit floats off; the
 `two_plane_sequence*` fixtures wait for the port of the SLAM loop.
@@ -15,7 +17,7 @@ from ..geometry.pose import exp_so3
 
 __all__ = [
     "gaussian_blob_image", "checkerboard", "random_texture", "warp_affine",
-    "warp_homography", "two_plane_stereo",
+    "warp_homography", "two_plane_stereo", "orient_windows", "orient_keypoints",
 ]
 
 
@@ -136,3 +138,66 @@ def warp_affine(img, A, t, out_shape=None):
         + img[y0c + 1, x0c + 1] * fy * fx
     )
     return np.where(valid, out, 0.0).astype(np.float32)
+
+
+def _bf16(x) -> np.ndarray:
+    """Round f32 values to the nearest bf16 (ties to even), kept as f32."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+# the windows of `orient_windows`, as gradient vectors (gx, gy) at offsets
+# (dy, dx) from the keypoint.  At sigma 2 (default config: window sigma 3,
+# radius 9) the window weight of an offset with r^2 = 9 is exp_window(-0.5),
+# a value every route computes alike (its products with -0.5 are exact, so
+# a fused multiply-add rounds as the separate ones).  "ratio": the smoothed
+# histogram's bin 18 is exactly f32(0.8) * its bin 0 (found by search over
+# bf16 magnitudes); "below": one bf16 step less, so bin 18 is no peak.
+ORIENT_WINDOWS = {
+    "flat": [],
+    "tie": [((0, 3), (0.5, 0.0)), ((0, -3), (-0.5, 0.0))],
+    "ratio": [((0, 3), (0.625, 0.0)), ((0, -3), (-0.5, 0.0))],
+    "below": [((0, 3), (0.625, 0.0)), ((0, -3), (-0.498046875, 0.0))],
+}
+
+
+def orient_windows(kinds=tuple(ORIENT_WINDOWS), size=48, sigma=2.0):
+    """One [size, size] gradient plane per window of `ORIENT_WINDOWS`, zero
+    but for the listed gradients, with a keypoint at its centre: the
+    orientation histogram's exact cases (an empty histogram, two equal
+    peaks, a second peak at exactly the peak ratio, one just below it).
+    Returns dict(gx, gy [N, size, size] f32 (bf16 values), plane int32,
+    y, x, sigma f32, mask bool [N], kinds)."""
+    n = len(kinds)
+    gx = np.zeros((n, size, size), np.float32)
+    gy = np.zeros((n, size, size), np.float32)
+    c = size // 2
+    for i, kind in enumerate(kinds):
+        for (dy, dx), (vx, vy) in ORIENT_WINDOWS[kind]:
+            gx[i, c + dy, c + dx], gy[i, c + dy, c + dx] = vx, vy
+    return dict(gx=gx, gy=gy, plane=np.arange(n, dtype=np.int32),
+                y=np.full(n, c, np.float32), x=np.full(n, c, np.float32),
+                sigma=np.full(n, sigma, np.float32), mask=np.ones(n, bool), kinds=tuple(kinds))
+
+
+def orient_keypoints(n, planes=3, h=61, w=53, seed=0, masked=0.0, corners=False):
+    """Random bf16 gradient planes [planes, h, w] and n keypoints on them at
+    random subpixel positions and scales, a share `masked` of them masked;
+    if `corners`, the first (up to) four sit live at the plane corners.
+    Returns the dict of `orient_windows`."""
+    rng = np.random.default_rng(seed)
+    gx = _bf16(rng.normal(0, 0.1, (planes, h, w)))
+    gy = _bf16(rng.normal(0, 0.1, (planes, h, w)))
+    y = rng.uniform(0, h - 1, n).astype(np.float32)
+    x = rng.uniform(0, w - 1, n).astype(np.float32)
+    if corners:
+        k = min(n, 4)
+        y[:k] = np.array([0, 0, h - 1, h - 1], np.float32)[:k]
+        x[:k] = np.array([0, w - 1, 0, w - 1], np.float32)[:k]
+    mask = rng.random(n) >= masked
+    if corners:
+        mask[:k] = True
+    return dict(gx=gx, gy=gy, plane=rng.integers(0, planes, n).astype(np.int32), y=y, x=x,
+                sigma=rng.uniform(1.0, 3.0, n).astype(np.float32), mask=mask,
+                kinds=("random",) * n)

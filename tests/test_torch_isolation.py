@@ -25,7 +25,7 @@ def test_imports_without_jax_or_reference():
         for name in ("jax", "jaxlib", "siftgpu_tpu"):
             sys.modules[name] = None          # any import of them now fails
         import siftgpu_tpu_torch
-        from siftgpu_tpu_torch import convert
+        from siftgpu_tpu_torch import bounds, convert
         from siftgpu_tpu_torch.core import config, flags, image, precision, scalespace
         from siftgpu_tpu_torch.frontend import (describe, detect, extract, fused, match, orient,
                                                 pyramid, redetect)

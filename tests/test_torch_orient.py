@@ -109,3 +109,60 @@ def test_exp_window_matches_reference_polynomial():
     np.testing.assert_allclose(kp_engine.exp_window(torch.from_numpy(x)).numpy(),
                                np.asarray(jkp.exp_window(jnp.asarray(x))), rtol=0, atol=2e-7)
     assert kp_engine.EXPW == jkp._EXPW
+
+
+def _reference_orientations(d, jcfg):
+    """The reference's `orient.compute_orientations` on the planes and
+    keypoints of an `orient_windows` / `orient_keypoints` dict, as one frame
+    whose S levels are the planes."""
+    from siftgpu_tpu.frontend.detect import OctaveKeypoints
+
+    P, h, w = d["gx"].shape
+    grads = jorient.GradStack(jnp.asarray(d["gx"])[None].astype(jnp.bfloat16),
+                              jnp.asarray(d["gy"])[None].astype(jnp.bfloat16),
+                              h, w, jnp.int32(0), h)
+    j = lambda a: jnp.asarray(a)[None]
+    zeros = np.zeros_like(d["y"])
+    kp = OctaveKeypoints(j(d["y"]), j(d["x"]), j(zeros), j(d["plane"] + 1), j(d["sigma"]),
+                         j(zeros), j(d["mask"]))
+    theta, valid = jorient.compute_orientations(grads, kp, jcfg)
+    return np.asarray(theta)[0], np.asarray(valid)[0]
+
+
+@pytest.mark.parametrize("kind", ["flat", "tie", "ratio", "below", "n9-masked-corners"])
+def test_orient_sample_built_windows_match_reference(kind):
+    """Histograms built to be exact, through the plain version and the
+    reference: an empty histogram (no peak: theta 0 in slot 0), two equal
+    peaks (the lower bin first), a second peak at exactly peak_ratio * max
+    (kept: >=) and one bf16 step below it (dropped); and N = 9 random
+    keypoints with masked rows and the four plane corners.  These fix the
+    tie rules the card's kernel is held to."""
+    cfg, jcfg = SiftConfig(), JConfig()
+    if kind.startswith("n9"):
+        d = fixtures.orient_keypoints(9, seed=3, masked=0.3, corners=True)
+    else:
+        d = fixtures.orient_windows((kind,))
+    t = torch.from_numpy
+    P, h, w = d["gx"].shape
+    th, haspk, sgx, sgy = kp_engine.orient_sample(
+        t(d["gx"]).to(torch.bfloat16), t(d["gy"]).to(torch.bfloat16), t(d["plane"]),
+        t(d["y"]), t(d["x"]), t(d["sigma"]), cfg, t(d["mask"]), h, w)
+    th, haspk = th.numpy(), haspk.numpy()
+    valid = haspk.copy()
+    valid[:, 0] = d["mask"]
+    th_r, v_r = _reference_orientations(d, jcfg)
+    np.testing.assert_array_equal(valid, v_r)
+    np.testing.assert_allclose(th[valid], th_r[valid], rtol=0, atol=1e-5)
+    two_pi, nb = 2 * np.pi, cfg.orientation_bins
+    if kind == "flat":
+        assert not haspk.any() and not th.any() and not sgx.numpy()[:, 256:].any()
+    elif kind in ("tie", "ratio"):
+        assert haspk[0].tolist() == [True, True]
+        np.testing.assert_allclose(th[0], [two_pi * 0.5 / nb, two_pi * 18.5 / nb], atol=1e-6)
+    elif kind == "below":
+        assert haspk[0].tolist() == [True, False] and th[0, 1] == 0.0
+    else:
+        masked = ~d["mask"]
+        assert masked.any() and d["mask"].any()
+        for out in (th, haspk, sgx.numpy(), sgy.numpy()):
+            assert not out[masked].any()

@@ -95,3 +95,94 @@ def test_octave_impl_names():
     cfg = SiftConfig(height=32, width=32)
     with pytest.raises(ValueError, match="octave_impl"):
         pyramid.build_pyramid(torch.zeros(1, 32, 32), cfg, octave_impl="fused_interpret")
+
+
+def _radii(dog_levels=3):
+    cfg = SiftConfig(dog_levels=dog_levels)
+    return [(len(t) - 1) // 2 for t in (cfg.gaussian_taps(float(s)) for s in cfg.incremental_sigmas())]
+
+
+def _csrc_constants():
+    """TH, TW, NT, MAX_TAPS, MAX_LEVELS as csrc/pyramid_octave.cu states them."""
+    import re
+    from pathlib import Path
+
+    src = (Path(pyramid_kernel.__file__).parent.parent / "csrc" / "pyramid_octave.cu").read_text()
+    return {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+            for k in ("TH", "TW", "NT", "MAX_TAPS", "MAX_LEVELS")}
+
+
+@pytest.mark.parametrize("shape,dog_levels", [
+    ((4, 480, 640), 3), ((4, 240, 320), 3), ((4, 120, 160), 3), ((4, 60, 80), 3),
+    ((4, 30, 40), 3), ((1, 20, 26), 3), ((1, 33, 47), 3),
+    ((4, 480, 640), 2), ((4, 480, 640), 4), ((4, 480, 640), 5)], ids=str)
+def test_launch_plan(shape, dog_levels):
+    """The octave kernel's launch: 64x64 tiles, one per block at most, each
+    level's halo its own radius, the shared windows of the largest radius
+    within a block's 227 KB less the static tap arrays; the wrapper's
+    constants are the kernel source's."""
+    B, H, W = shape
+    radii = _radii(dog_levels)
+    plan = pyramid_kernel.launch_plan(B, H, W, radii)
+    c = _csrc_constants()
+    assert plan["tile"] == (c["TH"], c["TW"]) == (64, 64) and plan["threads"] == c["NT"]
+    assert plan["tiles"] == B * -(-H // 64) * -(-W // 64)
+    assert plan["halo"] == tuple(radii) and len(radii) == dog_levels + 2
+    r = max(radii)
+    assert plan["smem_bytes"] == 4 * (64 + 2 * r) * (((64 + 2 * r) | 1) + 65)
+    assert plan["smem_bytes"] <= 232_448 - (c["MAX_TAPS"] + 2 * c["MAX_LEVELS"]) * 4
+    if dog_levels == 3:
+        assert radii == [5, 7, 8, 10, 13] and plan["smem_bytes"] == 56_160
+    if shape == (4, 480, 640) and dog_levels == 3:
+        assert plan["tiles"] == 320
+
+
+def test_launch_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        pyramid_kernel.launch_plan(1, 64, 64, [120])
+    with pytest.raises(ValueError, match="taps in all"):
+        pyramid_kernel.launch_plan(1, 64, 64, [40, 40, 40, 40])
+    with pytest.raises(ValueError, match="levels"):
+        pyramid_kernel.launch_plan(1, 64, 64, [])
+
+
+def _tiled_octave(base, taps_list):
+    """A NumPy model of csrc/pyramid_octave.cu's tiling: level s of each
+    64x64 tile from level s-1 of the whole plane, through a window of the
+    tile plus only that level's radius on each side, every coordinate
+    clamped to the image; the row pass over every window row, then the
+    column pass over the tile; only in-image outputs are stored."""
+    B, H, W = base.shape
+    plan = pyramid_kernel.launch_plan(B, H, W, [(len(t) - 1) // 2 for t in taps_list])
+    th, tw = plan["tile"]
+    levels = [base.astype(np.float64)]
+    for t, r in zip(taps_list, plan["halo"]):
+        t = np.asarray(t, np.float64)
+        prev, out = levels[-1], np.empty_like(levels[-1])
+        for y0 in range(0, H, th):
+            for x0 in range(0, W, tw):
+                rows = np.clip(np.arange(y0 - r, y0 + th + r), 0, H - 1)
+                cols = np.clip(np.arange(x0 - r, x0 + tw + r), 0, W - 1)
+                win = prev[:, rows][:, :, cols]                       # [B, th+2r, tw+2r]
+                tmp = sum(t[k] * win[:, :, k : k + tw] for k in range(2 * r + 1))
+                tile = sum(t[k] * tmp[:, k : k + th] for k in range(2 * r + 1))
+                hh, ww = min(th, H - y0), min(tw, W - x0)
+                out[:, y0 : y0 + hh, x0 : x0 + ww] = tile[:, :hh, :ww]
+        levels.append(out)
+    gauss = np.stack(levels, 1)
+    return gauss, gauss[:, 1:] - gauss[:, :-1]
+
+
+@pytest.mark.parametrize("shape,dog_levels", [((2, 20, 26), 3), ((1, 33, 47), 3),
+                                              ((2, 97, 131), 3), ((1, 97, 131), 2)], ids=str)
+def test_tiled_model_matches_plain_chain(shape, dog_levels):
+    """The kernel's index arithmetic, checked where no card is: its tiling
+    and per-level halos give the plain chain's octave within 1e-6."""
+    cfg = SiftConfig(dog_levels=dog_levels)
+    taps = [cfg.gaussian_taps(float(s)) for s in cfg.incremental_sigmas()]
+    base = np.random.default_rng(7).random(shape).astype(np.float32)
+    mg, md = _tiled_octave(base, taps)
+    pg, pd = pyramid_kernel.blur_octave_fused_plain(torch.from_numpy(base), taps)
+    assert float(np.abs(mg - pg.double().numpy()).max()) < 1e-6
+    assert float(np.abs(md - pd.double().numpy()).max()) < 1e-6
+    assert np.array_equal(mg[:, 0], base)
