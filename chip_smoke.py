@@ -31,6 +31,10 @@ CG steps of BA.  It checks them:
      9, 10 and 64 bins, all keypoints masked, the plane corners and built
      windows held to the plain version run on the CPU (an empty
      histogram, an exact tie, a peak at exactly 0.8 max, one just below);
+     match_best2 and its gated variant on exact ties placed across the
+     match kernel's 128-row tiles and column splits (300 x 701); and
+     detect_scores on DoG volumes smaller than one 16 x 64 tile, with odd H,
+     and odd in both sizes over many tiles (251 x 331);
   4. main path: launch counters reset to 0, one extract + match, every
      main-path kernel must have launched; >= 90% known-shift inliers per
      pair; frame 0 on the CPU must pair >= 99% of its keypoints with the
@@ -607,6 +611,7 @@ def edge_cases(dev, sync):
     # gated: the same tie sets (pair 0), locations that keep the ties inside
     # the gates, rows 90-99 moved across the epilines (fully gated out)
     from siftgpu_tpu_torch.frontend import match as fmatch
+    from siftgpu_tpu_torch.ops import detect_scores as ds
     from siftgpu_tpu_torch.ops import match_kernel as mk
 
     loc0 = rng.uniform(0, 640, (100, 2))
@@ -626,6 +631,53 @@ def edge_cases(dev, sync):
                    rows[None].contiguous(), cols[None].contiguous(),
                    *fmatch.gate_thresholds(3.0, 2.0)), f"edge: {label}", timed=False)
 
+    # match tiles and column splits (ops/match_kernel.py::launch_plan: 128-row
+    # tiles, 64-column tiles, one split per tile here): an exact best in three
+    # column splits (10, 200, 650) for three identical rows in three row
+    # tiles (5, 140, 290), so best == second for them and the column
+    # argbest ties across row tiles; a masked column (-inf everywhere);
+    # N1 = 701 puts pair 1's mask at an odd byte offset; pair 1 has every
+    # column masked; then the same sets under each gate, rows 250-299
+    # moved across the epilines (fully gated out)
+    d0 = rng.integers(0, 256, (2, 300, 128), dtype=np.uint8)
+    d1 = rng.integers(0, 256, (2, 701, 128), dtype=np.uint8)
+    d0[:, [140, 290]] = d0[:, 5]
+    d1[:, [10, 200, 650]] = d0[:, 5:6]
+    m0 = rng.random((2, 300)) > 0.1
+    m1 = rng.random((2, 701)) > 0.1
+    m0[:, [5, 140, 290]] = True
+    m1[:, [10, 200, 650]] = True
+    m1[:, 333] = False
+    m1[1, :] = False
+    par.match(t(d0), t(d1), t(m0), t(m1), "edge: row tiles, column splits, ties")
+    loc0 = rng.uniform(0, 640, (300, 2))
+    loc1 = rng.uniform(0, 640, (701, 2))
+    loc1[:300] = loc0 + np.array(SHIFT) + rng.normal(0, 0.7, (300, 2))
+    loc0[[140, 290]] = loc0[5]
+    loc1[[10, 200, 650]] = loc0[5] + np.array(SHIFT)
+    loc0[250:] += 5000.0 * np.array([2.0, 3.0]) / np.sqrt(13.0)
+    for label, Hm, Fm in (("H", H, None), ("F", None, t(cross(*SHIFT))),
+                          ("H+F", H, t(cross(*SHIFT)))):
+        gate, rows, cols = fmatch.gate_operands(t(loc0.astype(np.float32)),
+                                                t(loc1.astype(np.float32)), Hm, Fm)
+        e0, e1 = t(d0[:1]), t(d1[:1])
+        par.gated((e0, e1, mk.recip_norms(e0), mk.recip_norms(e1), t(m0[:1]), t(m1[:1]), gate,
+                   rows[None].contiguous(), cols[None].contiguous(),
+                   *fmatch.gate_thresholds(3.0, 2.0)), f"edge: tiles and splits, {label}",
+                  timed=False)
+
+    # detect_scores on DoG volumes off the pyramid's shapes
+    # (ops/detect_scores.py::launch_plan: 16 x 64 tiles): planes smaller than
+    # one tile (a block per slice; W = 13 takes the 4-byte copies), odd H with
+    # W a multiple of 4, and an odd plane of many tiles, neither a multiple of
+    # the tile, where each block walks all slices on 4-byte copies
+    for shape in ((2, 5, 9, 13), (1, 6, 35, 68), (4, 5, 251, 331)):
+        dog = torch.from_numpy(rng.normal(0, 0.03, shape).astype(np.float32)).to(dev)
+        par.detect(dog)
+        log(f"  detect_scores (DoG {shape}, slices per block "
+            f"{ds.launch_plan(shape[0], shape[1] - 2, *shape[2:])['slices_per_block']}): "
+            "score planes bit-identical, records within 2 ulp")
+
     # sampler: odd plane sizes, grids that leave the planes, N = 1
     for P, hh, ww, n in ((5, 37, 53, 1), (3, 61, 29, 77)):
         g = torch.from_numpy(rng.normal(0, 1, (2, P, hh, ww)).astype(np.float32)).to(torch.bfloat16)
@@ -635,7 +687,8 @@ def edge_cases(dev, sync):
                     t((cy + rng.uniform(-30, 30, (n, 256))).astype(np.float32)),
                     t((cx + rng.uniform(-30, 30, (n, 256))).astype(np.float32))),
                    f"edge: {P}x{hh}x{ww}, N={n}", timed=False)
-    log("  edge cases: match_best2_gated and sample_gradients bit-identical to the plain versions")
+    log("  edge cases: match_best2, match_best2_gated and sample_gradients bit-identical to the "
+        "plain versions")
 
 
 def cross(tx: float, ty: float) -> np.ndarray:
@@ -1056,7 +1109,8 @@ def main() -> int:
     log("phase 2: build (one nvcc per library, all at once)")
     t0 = time.perf_counter()
     for lib, (sec, out) in _build.build_all().items():
-        regs = [ln.split(":", 1)[1].strip() for ln in out.splitlines() if "registers" in ln]
+        regs = [ln.split(":", 1)[-1].strip() for ln in out.splitlines()
+                if "registers" in ln or ("spill" in ln and " 0 bytes spill stores" not in ln)]
         log(f"  {lib}: {sec:.1f} s" + (f" ({'; '.join(regs)})" if regs else ""))
     log(f"  all libraries: {time.perf_counter() - t0:.1f} s")
 

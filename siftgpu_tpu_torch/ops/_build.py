@@ -90,6 +90,7 @@ class Kernel:
         self.launches = 0
         self.build_log = None             # nvcc's output (ptxas register use)
         self._lib = None
+        self._fns = {}                    # C entry name -> bound ctypes function
         KERNELS[name] = self
 
     def _sources(self):
@@ -127,32 +128,43 @@ class Kernel:
         return out
 
     def lib(self) -> ctypes.CDLL:
+        """Build (if needed) and load the library; bind each C entry once."""
         if self._lib is None:
             lib = ctypes.CDLL(str(self.build()))
+            fns = {}
             for fn, argtypes in self.entry.items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
+                fns[fn] = f
             lib.sift_cuda_error_string.argtypes = [ctypes.c_int]
             lib.sift_cuda_error_string.restype = ctypes.c_char_p
+            self._fns = fns
             self._lib = lib
         return self._lib
 
     def launch(self, fn: str, device: torch.device, *args) -> None:
         """Call C entry `fn` on `device`'s current stream (appended as the
-        last argument); raise on a non-zero cudaGetLastError()."""
-        lib = self.lib()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = getattr(lib, fn)(*args, ctypes.c_void_p(stream))
+        last argument); raise on a non-zero cudaGetLastError().  Pointers
+        and the stream go as Python ints (the bound argtypes convert them);
+        the device is made current only when it is not already."""
+        if self._lib is None:
+            self.lib()
+        idx = device.index
+        cur = torch.cuda.current_device()
+        if idx is None or idx == cur:
+            rc = self._fns[fn](*args, torch._C._cuda_getCurrentRawStream(cur))
+        else:
+            with torch.cuda.device(idx):
+                rc = self._fns[fn](*args, torch._C._cuda_getCurrentRawStream(idx))
         if rc != 0:
-            msg = lib.sift_cuda_error_string(rc).decode()
+            msg = self._lib.sift_cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc} ({msg})")
         self.launches += 1
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
 
 
 def build_all() -> dict:

@@ -13,9 +13,12 @@ border, and emits
 with (He, We) = (H, W) rounded up to even and zeros in the padding.
 
 `detect_scores(dog, cfg)` takes the plain version for a CPU tensor and the
-CUDA kernel (`csrc/detect_scores.cu`) for a CUDA tensor.  The kernel is
-compiled with -fmad=false and repeats the plain version's operations in the
-same order, so its outputs are bit-identical to the plain version's.
+CUDA kernel (`csrc/detect_scores.cu`: one block per frame and 16 x 64 tile,
+every DoG plane of the tile staged once in shared memory with its halo,
+float2 stores; `launch_plan` states the launch) for a CUDA tensor.  The
+kernel is compiled with -fmad=false and repeats the plain version's
+operations in the same order, so its outputs are bit-identical to the plain
+version's.
 """
 
 from __future__ import annotations
@@ -27,14 +30,46 @@ import torch
 
 from . import _build
 
-__all__ = ["detect_scores", "detect_scores_plain", "cramer_record", "KERNEL"]
+__all__ = ["detect_scores", "detect_scores_plain", "cramer_record", "launch_plan", "KERNEL"]
 
 KERNEL = _build.Kernel(
     "detect_scores", "detect_scores.cu",
     {"detect_scores_launch": [ctypes.c_void_p] * 7
-     + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p]},
+     + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]},
     flags=["-fmad=false"],
 )
+
+
+# csrc/detect_scores.cu's constants: output tile (rows, columns), pixels per
+# thread (a row pair x 2 columns), threads, planes in the shared ring, the
+# window's columns beside the tile on each side (16-byte aligned chunks);
+# a plane with fewer tiles than 2 blocks per SM of the H100's 132 gets a
+# block per slice
+TILE, THREAD_PIXELS, THREADS, RING, WIN_SIDE = (16, 64), (2, 2), 256, 4, 4
+MIN_BLOCKS = 2 * 132
+
+
+def launch_plan(B: int, S: int, H: int, W: int) -> dict:
+    """The detect kernel's launch for a DoG volume [B, S+2, H, W], as
+    `csrc/detect_scores.cu` runs it: one block per frame and 16 x 64 tile of
+    the even-padded (He, We) output, walking all S slices
+    (`slices_per_block` = S), or one block per slice where the tiles number
+    fewer than MIN_BLOCKS (`slices_per_block` = 1); the block's 256 threads
+    each own a row pair x 2 consecutive columns (float2 stores); each DoG
+    plane a block needs is staged once with a 1-pixel halo (a window of 18
+    rows x 72 columns, 4 each side) into a ring of 4 planes in shared
+    memory, by 16-byte copies when W is a multiple of 4 (`vector_loads`)."""
+    if min(B, S, H, W) <= 0:
+        raise ValueError(f"launch_plan: empty volume ({B}, {S} + 2, {H}, {W})")
+    He, We = H + H % 2, W + W % 2
+    th, tw = TILE
+    win = (th + 2, tw + 2 * WIN_SIDE)
+    tiles = (-(-We // tw), -(-He // th))
+    spb = S if tiles[0] * tiles[1] * B >= MIN_BLOCKS else 1
+    return dict(tile=TILE, thread_pixels=THREAD_PIXELS, threads=THREADS, halo=1, ring=RING,
+                window=win, smem_bytes=RING * win[0] * win[1] * 4, slices_per_block=spb,
+                grid=(tiles[0], tiles[1], B * (S // spb)), out_shape=(He, We),
+                vector_loads=W % 4 == 0)
 
 
 def _f32(x: float) -> float:
@@ -154,11 +189,12 @@ def _detect_scores_cuda(dog: torch.Tensor, cfg):
     half = torch.empty((2, B, S, He // 2, We), dtype=torch.float32, device=dog.device)
     recs = torch.empty((4, B, S, He, We), dtype=torch.float32, device=dog.device)
     thr08, edge_c = thresholds(cfg)
+    plan = launch_plan(B, S, H, W)
     p = _build.ptr
     KERNEL.launch(
         "detect_scores_launch", dog.device,
         p(dog), p(half[0]), p(half[1]), p(recs[0]), p(recs[1]), p(recs[2]), p(recs[3]),
-        B, S, H, W, thr08, edge_c, int(bool(cfg.subpixel)),
+        B, S, H, W, thr08, edge_c, int(bool(cfg.subpixel)), plan["slices_per_block"],
     )
     return (half[0], half[1], recs[0], recs[1], recs[2], recs[3])
 

@@ -9,10 +9,11 @@ d1 [P, N1, 128] (P pairs):
 
 and per row the best and second-best similarity and the argbest column, per
 column the argbest row; ties go to the lowest index.  The integer dot is
-exact (in the kernel by `__dp4a`, in the plain version by an f32 matmul of
-values < 2^24), so with the same `rn0`/`rn1` the kernel
+exact (in the kernel on the int8 tensor cores, in the plain version by an
+f32 matmul of values < 2^24), so with the same `rn0`/`rn1` the kernel
 (`csrc/match_best2.cu`) and the plain version return identical selections
-and bit-identical similarities.
+and bit-identical similarities.  `launch_plan` states the kernel's tiles,
+column splits, grid, scratch and shared memory.
 
 The gated variant (`match_best2_gated`, guided matching) also masks every
 pair that fails the reprojection gate ("h") and/or the symmetric epipolar
@@ -38,23 +39,58 @@ from ..core.precision import full_f32
 __all__ = [
     "match_best2", "match_best2_plain", "match_best2_gated",
     "match_best2_gated_plain", "best2_dense", "gate_matrix", "recip_norms",
-    "KERNEL", "GATED",
+    "launch_plan", "KERNEL", "GATED",
 ]
 
 KERNEL = _build.Kernel(
     "match_best2", "match_best2.cu",
-    {"match_best2_launch": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+    {"match_best2_launch": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
      + [ctypes.c_void_p]},
 )
 GATED = _build.Kernel(
     "match_best2_gated", "match_best2.cu",
     {"match_best2_gated_launch": [ctypes.c_void_p] * 8 + [ctypes.c_float] * 2
-     + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]},
+     + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]},
 )
 
 _GATE_CODE = {"h": 1, "f": 2, "hf": 3}
 _GATE_ROWS = {"h": 2, "f": 5, "hf": 7}
 _GATE_COLS = {"h": 2, "f": 5, "hf": 5}
+
+# csrc/match_best2.cu's constants: rows per block, columns per staged tile,
+# shared row pitch in bytes, threads (8 warps: 2 row halves x 4 column
+# quarters), ring stages, mask window bytes per stage; the grid aims at
+# about 4 blocks per SM of the H100's 132
+BM, BN, PITCH, THREADS, STAGES, MASK_W = 128, 64, 144, 256, 2, 80
+TARGET_BLOCKS = 4 * 132
+SMEM_LIMIT = 232_448            # 227 KB a block can hold
+
+
+def launch_plan(P: int, N0: int, N1: int, gate=None) -> dict:
+    """The match kernel's launch for P pairs of [N0, 128] x [N1, 128], as
+    `csrc/match_best2.cu` runs it: a block owns a 128-row tile of one pair
+    (staged once) and a column split of `tiles_per_split` 64-column tiles,
+    streamed through a 2-stage cp.async ring; warps take 64 x 16 tiles of
+    `mma.sync m16n8k32` u8 products.  Splits are as many as bring the grid
+    to about TARGET_BLOCKS blocks (never more than the column tiles, none
+    empty).  Each split writes its rows' (best, second, argbest) to the
+    scratch [3, P, N0, splits], merged in split order by a second kernel;
+    each column gets one 64-bit atomicMax per row tile."""
+    if min(P, N0, N1) <= 0:
+        raise ValueError(f"launch_plan: empty sets ({P}, {N0}, {N1})")
+    rows, cols = (_GATE_ROWS[gate], _GATE_COLS[gate]) if gate else (0, 0)
+    row_tiles, col_tiles = -(-N0 // BM), -(-N1 // BN)
+    want = -(-TARGET_BLOCKS // (row_tiles * P))
+    tps = -(-col_tiles // min(want, col_tiles))
+    splits = -(-col_tiles // tps)
+    smem = (BM * PITCH + STAGES * BN * PITCH + 2 * BN * 8 + STAGES * BN * 4 * (1 + cols)
+            + rows * BM * 4 + STAGES * MASK_W)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"launch_plan: {smem} bytes of shared memory")
+    return dict(tile=(BM, BN), threads=THREADS, warp_tile=(64, 16), mma="m16n8k32.u8.u8.s32",
+                stages=STAGES, row_tiles=row_tiles, col_tiles=col_tiles,
+                tiles_per_split=tps, splits=splits, grid=(row_tiles, splits, P),
+                scratch=(3, P, N0, splits), smem_bytes=smem, atomics_per_column=row_tiles)
 
 
 def recip_norms(d: torch.Tensor) -> torch.Tensor:
@@ -140,9 +176,9 @@ def _check_match_args(d0, d1, rn0, rn1, m0, m1):
     _build.check_tensor(d1, "d1", torch.uint8, 3)
     if D != 128 or d1.shape[0] != P or d1.shape[2] != 128:
         raise ValueError(f"descriptors must be [P, N, 128]: {tuple(d0.shape)}, {tuple(d1.shape)}")
-    if N0 == 0 or N1 == 0 or d0.data_ptr() % 4 or d1.data_ptr() % 4:
-        raise ValueError("descriptor sets must be non-empty and 4-byte aligned "
-                         "(the kernel reads them as packed 32-bit words)")
+    if N0 == 0 or N1 == 0 or d0.data_ptr() % 16 or d1.data_ptr() % 16:
+        raise ValueError("descriptor sets must be non-empty and 16-byte aligned "
+                         "(the kernel copies them in 16-byte chunks)")
     for name, t, dt, n in (("rn0", rn0, torch.float32, N0), ("rn1", rn1, torch.float32, N1),
                            ("m0", m0, torch.bool, N0), ("m1", m1, torch.bool, N1)):
         _build.check_tensor(t, name, dt, 2)
@@ -151,22 +187,30 @@ def _check_match_args(d0, d1, rn0, rn1, m0, m1):
     return P, N0, N1
 
 
-def _outputs(P, N0, N1, dev):
-    return (torch.empty((P, N0), dtype=torch.float32, device=dev),
-            torch.empty((P, N0), dtype=torch.float32, device=dev),
-            torch.empty((P, N0), dtype=torch.int32, device=dev),
-            torch.empty((P, N1), dtype=torch.int32, device=dev),
-            torch.zeros((P, N1), dtype=torch.int64, device=dev))   # colkey scratch
+def _outputs(plan, P, N0, N1, dev):
+    """(bsim, ssim, bestj, col_best_i) and the kernel's scratch: the zeroed
+    column keys [P, N1] and the split partials [3, P, N0, splits]."""
+    out = torch.empty((3, P, N0), dtype=torch.int32, device=dev)
+    colb = torch.empty((P, N1), dtype=torch.int32, device=dev)
+    colkey = torch.zeros((P, N1), dtype=torch.int64, device=dev)
+    part = torch.empty(plan["scratch"], dtype=torch.int32, device=dev)
+    return out, colb, colkey, part
+
+
+def _results(out, colb):
+    return out[0].view(torch.float32), out[1].view(torch.float32), out[2], colb
 
 
 def _match_best2_cuda(d0, d1, rn0, rn1, m0, m1):
     P, N0, N1 = _check_match_args(d0, d1, rn0, rn1, m0, m1)
-    bsim, ssim, bestj, colb, colkey = _outputs(P, N0, N1, d0.device)
+    plan = launch_plan(P, N0, N1)
+    out, colb, colkey, part = _outputs(plan, P, N0, N1, d0.device)
     p = _build.ptr
     KERNEL.launch("match_best2_launch", d0.device,
-                  p(d0), p(d1), p(rn0), p(rn1), p(m0), p(m1),
-                  p(bsim), p(ssim), p(bestj), p(colb), p(colkey), P, N0, N1)
-    return bsim, ssim, bestj, colb
+                  p(d0), p(d1), p(rn0), p(rn1), p(m0), p(m1), p(out[0]), p(out[1]), p(out[2]),
+                  p(colb), p(colkey), p(part[0]), p(part[1]), p(part[2]), P, N0, N1,
+                  plan["tiles_per_split"], plan["splits"])
+    return _results(out, colb)
 
 
 def _match_best2_gated_cuda(d0, d1, rn0, rn1, m0, m1, gate, rows, cols, h2, fthr):
@@ -178,13 +222,15 @@ def _match_best2_gated_cuda(d0, d1, rn0, rn1, m0, m1, gate, rows, cols, h2, fthr
     if tuple(rows.shape) != (P, _GATE_ROWS[gate], N0) or tuple(cols.shape) != (P, _GATE_COLS[gate], N1):
         raise ValueError(f"gate {gate!r}: rows {tuple(rows.shape)} / cols {tuple(cols.shape)} "
                          f"must be {(P, _GATE_ROWS[gate], N0)} / {(P, _GATE_COLS[gate], N1)}")
-    bsim, ssim, bestj, colb, colkey = _outputs(P, N0, N1, d0.device)
+    plan = launch_plan(P, N0, N1, gate)
+    out, colb, colkey, part = _outputs(plan, P, N0, N1, d0.device)
     p = _build.ptr
     GATED.launch("match_best2_gated_launch", d0.device,
                  p(d0), p(d1), p(rn0), p(rn1), p(m0), p(m1), p(rows), p(cols),
-                 float(h2), float(fthr), p(bsim), p(ssim), p(bestj), p(colb), p(colkey),
-                 P, N0, N1, _GATE_CODE[gate])
-    return bsim, ssim, bestj, colb
+                 float(h2), float(fthr), p(out[0]), p(out[1]), p(out[2]), p(colb), p(colkey),
+                 p(part[0]), p(part[1]), p(part[2]), P, N0, N1, plan["tiles_per_split"],
+                 plan["splits"], _GATE_CODE[gate])
+    return _results(out, colb)
 
 
 def match_best2(d0, d1, rn0, rn1, m0, m1):
