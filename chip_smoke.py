@@ -32,25 +32,34 @@ CG steps of BA.  It checks them:
      windows held to the plain version run on the CPU (an empty
      histogram, an exact tie, a peak at exactly 0.8 max, one just below);
      match_best2 and its gated variant on exact ties placed across the
-     match kernel's 128-row tiles and column splits (300 x 701); and
+     match kernel's 128-row tiles and column splits (300 x 701);
      detect_scores on DoG volumes smaller than one 16 x 64 tile, with odd H,
-     and odd in both sizes over many tiles (251 x 331);
+     and odd in both sizes over many tiles (251 x 331); grad_stencil with
+     W < 8, the window padding (Wp odd, Wp a multiple of 8), columns across
+     warps and blocks and a base that is not 16-byte aligned; and
+     sample_gradients with skipped keypoints (plane -1) among live ones and
+     on a 9 x 9 grid;
   4. main path: launch counters reset to 0, one extract + match, every
      main-path kernel must have launched; >= 90% known-shift inliers per
      pair; frame 0 on the CPU must pair >= 99% of its keypoints with the
      card's;
-  4b. facade path: launch counters reset to 0, the facade calls above; both
-     facade kernels must have launched; >= 90% inliers for plain and guided
-     matching and every guided pair inside its gate; descriptor-only
-     descriptors against the full pipeline's (cosine min > 0.95, mean >
-     0.99) and within 1 step of the CPU's; -obo identical to the default
-     extraction; -fo -1 pairing >= 99% of its keypoints with the CPU's;
+  4b. facade path: launch counters reset to 0, the facade calls above and
+     `run_sift` with `-v 2` (its stage table logged); both facade kernels
+     must have launched, the sampler once per octave in descriptor-only
+     mode; >= 90% inliers for plain and guided matching and every guided
+     pair inside its gate; descriptor-only descriptors against the full
+     pipeline's (cosine min > 0.95, mean > 0.99) and within 1 step of the
+     CPU's; its per-octave sampler calls replayed into one shared buffer by
+     the kernel and the plain version, equal to the run's; -obo identical
+     to the default extraction; -fo -1 pairing >= 99% of its keypoints with
+     the CPU's;
   4c. two-view path: launch counters reset to 0, `two_view_reconstruct`;
      kernels 1-4 and the octave kernel must have launched; the ground-truth
      bounds of tests/test_twoview.py (matches > 100, inliers > 50%,
      rotation < 0.01 rad, translation direction < 0.02, RMS < 0.75 px,
      > 80% of points in the two depth bands); the same RANSAC draws through
-     the port on the CPU give a rotation within 1e-3 rad of the card's;
+     the port on the CPU give a rotation within 1e-3 rad of the card's; a
+     repeated card run on the same draws is bit-identical;
   5. times: extract and match per batch, the facade calls, the whole
      pyramid with the octave kernel and with the cuDNN chain, the two-view
      stages (CUDA events); each kernel against its plain version and, where
@@ -67,6 +76,7 @@ power limit, one JSON object with a record per kernel, and
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -227,26 +237,29 @@ class Parity:
                   lambda: ds.detect_scores_plain(dog, self.cfg),
                   bounds.detect_scores_work(B, L - 2, Hd, Wd))
 
-    def grad(self, gauss):
+    def grad(self, gauss, pad=None, label="", timed=True):
+        """grad_stencil on gauss [B, S+3, H, W], padded to the orientation
+        window (or to `pad` = (min_h, min_w))."""
         from siftgpu_tpu_torch import bounds
         from siftgpu_tpu_torch.ops import grad_stencil as gs
 
         win = 2 * self.cfg.orient_window_radius + 1
-        S = self.cfg.dog_levels
-        got = gs.grad_stencil(gauss, S, win, win)
+        mh, mw = pad or (win, win)
+        S = gauss.shape[1] - 3
+        got = gs.grad_stencil(gauss, S, mh, mw)
         self.sync()
-        ref = gs.grad_stencil_plain(gauss, S, win, win)
+        ref = gs.grad_stencil_plain(gauss, S, mh, mw)
         for g, r in zip(got, ref):
             if not torch_equal_bits(g, r):
-                raise AssertionError("grad_stencil: differs from the plain version")
-        lib = lambda: grad_library(gauss, S, win, win)
+                raise AssertionError(f"grad_stencil {label}: differs from the plain version")
+        lib = lambda: grad_library(gauss, S, mh, mw)
         for g, r in zip(lib(), ref):   # the yardstick computes the same function
             if not torch_equal_bits(g, r):
-                raise AssertionError("grad_stencil: torch.gradient differs from the plain version")
+                raise AssertionError(f"grad_stencil {label}: torch.gradient differs from the plain version")
         B, _, Hg, Wg = gauss.shape
-        self.note("grad_stencil", 0.0, lambda: gs.grad_stencil(gauss, S, win, win),
-                  lambda: gs.grad_stencil_plain(gauss, S, win, win),
-                  bounds.grad_stencil_work(B, S, Hg, Wg, max(Hg, win), max(Wg, win)), lib)
+        self.note("grad_stencil", 0.0, lambda: gs.grad_stencil(gauss, S, mh, mw),
+                  lambda: gs.grad_stencil_plain(gauss, S, mh, mw),
+                  bounds.grad_stencil_work(B, S, Hg, Wg, max(Hg, mh), max(Wg, mw)), lib, timed)
 
     def orient(self, grads, kp):
         import torch
@@ -350,25 +363,41 @@ class Parity:
 
 
     def sample(self, args, label, timed=True):
+        """sample_gradients on args = (gx, gy, plane, py, px[, out]): the
+        kernel and the plain version each write into a copy of `out` (zeros
+        without it); skipped rows (plane < 0) must keep its bytes.  The
+        yardstick samples the live rows, selected beforehand."""
+        import torch
+
         from siftgpu_tpu_torch import bounds
         from siftgpu_tpu_torch.ops import desc_sampler as dsm
 
-        got = dsm.sample_gradients(*args)
+        gx, gy, plane, py, px = args[:5]
+        start = args[5] if len(args) > 5 else (torch.zeros_like(py), torch.zeros_like(py))
+        copy = lambda: tuple(b.clone() for b in start)
+        got = dsm.sample_gradients(gx, gy, plane, py, px, copy())
         self.sync()
-        ref = dsm.sample_gradients_plain(*args)
-        for name, g, r in zip(("sgx", "sgy"), got, ref):
+        ref = dsm.sample_gradients_plain(gx, gy, plane, py, px, copy())
+        live = plane >= 0
+        for name, g, r, b in zip(("sgx", "sgy"), got, ref, start):
             if not torch_equal_bits(g, r):
                 raise AssertionError(f"sample_gradients ({label}): {name} differs from the plain version")
-        lib = sample_library(*args)
-        libv = lib()
-        self.sync()
-        lerr = max(float((g - r).abs().max()) for g, r in zip(libv, ref)) if ref[0].numel() else 0.0
-        if lerr > 1e-4:   # the yardstick computes the same function, in another order
-            raise AssertionError(f"sample_gradients ({label}): grid_sample differs by {lerr}")
-        P, Hs, Ws = args[0].shape
-        self.note("sample_gradients", 0.0, lambda: dsm.sample_gradients(*args),
-                  lambda: dsm.sample_gradients_plain(*args),
-                  bounds.sample_gradients_work(P, Hs, Ws, *args[3].shape), lib, timed)
+            if not torch_equal_bits(g[~live], b[~live]):
+                raise AssertionError(f"sample_gradients ({label}): {name} wrote a skipped row")
+        n_live = int(live.sum())
+        lib = sample_library(gx, gy, plane[live], py[live], px[live]) if n_live else None
+        if lib is not None:
+            libv = lib()
+            self.sync()
+            lerr = max(float((g - r[live]).abs().max()) for g, r in zip(libv, ref))
+            if lerr > 1e-4:   # the yardstick computes the same function, in another order
+                raise AssertionError(f"sample_gradients ({label}): grid_sample differs by {lerr}")
+        P, Hs, Ws = gx.shape
+        kbuf, pbuf = copy(), copy()
+        self.note("sample_gradients", 0.0, lambda: dsm.sample_gradients(gx, gy, plane, py, px, kbuf),
+                  lambda: dsm.sample_gradients_plain(gx, gy, plane, py, px, pbuf),
+                  bounds.sample_gradients_work(P, Hs, Ws, *py.shape, sampled=n_live), lib, timed)
+        return n_live
 
     def octave(self, base, taps, label, timed=True):
         from siftgpu_tpu_torch import bounds
@@ -678,17 +707,76 @@ def edge_cases(dev, sync):
             f"{ds.launch_plan(shape[0], shape[1] - 2, *shape[2:])['slices_per_block']}): "
             "score planes bit-identical, records within 2 ulp")
 
-    # sampler: odd plane sizes, grids that leave the planes, N = 1
-    for P, hh, ww, n in ((5, 37, 53, 1), (3, 61, 29, 77)):
+    # sampler: odd plane sizes, grids that leave the planes, N = 1; skipped
+    # keypoints (plane -1) among live ones, into buffers holding NaN and -7;
+    # a 9 x 9 grid (G^2 = 81: the scalar accesses)
+    for P, hh, ww, n, skip, g2 in ((5, 37, 53, 1, False, 256), (3, 61, 29, 77, False, 81),
+                                   (4, 45, 70, 53, True, 256), (2, 30, 40, 9, True, 81)):
         g = torch.from_numpy(rng.normal(0, 1, (2, P, hh, ww)).astype(np.float32)).to(torch.bfloat16)
         cy = rng.uniform(-20, hh + 20, (n, 1))
         cx = rng.uniform(-20, ww + 20, (n, 1))
-        par.sample((g[0].to(dev), g[1].to(dev), t(rng.integers(0, P, n).astype(np.int32)),
-                    t((cy + rng.uniform(-30, 30, (n, 256))).astype(np.float32)),
-                    t((cx + rng.uniform(-30, 30, (n, 256))).astype(np.float32))),
-                   f"edge: {P}x{hh}x{ww}, N={n}", timed=False)
+        plane = rng.integers(0, P, n).astype(np.int32)
+        args = (g[0].to(dev), g[1].to(dev), t(np.where(rng.random(n) < 0.4, -1, plane) if skip else plane),
+                t((cy + rng.uniform(-30, 30, (n, g2))).astype(np.float32)),
+                t((cx + rng.uniform(-30, 30, (n, g2))).astype(np.float32)))
+        if skip:
+            args += ((torch.full((n, g2), float("nan"), device=dev),
+                      torch.full((n, g2), -7.0, device=dev)),)
+        live = par.sample(args, f"edge: {P}x{hh}x{ww}, N={n}, G2={g2}"
+                          f"{', rows skipped' if skip else ''}", timed=False)
+        if skip and not 0 < live < n:
+            raise AssertionError(f"sampler edge case: {live} of {n} rows live")
     log("  edge cases: match_best2, match_best2_gated and sample_gradients bit-identical to the "
-        "plain versions")
+        "plain versions, skipped sampler rows untouched")
+
+    # grad_stencil off the pyramid's shapes (ops/grad_stencil.py::launch_plan):
+    # W < 8, the window padding with Wp odd and with Wp a multiple of 8, a
+    # plane of two warps' and of two blocks' columns, and a base that is not
+    # 16-byte aligned (the scalar path)
+    from siftgpu_tpu_torch.ops import grad_stencil as gs
+
+    par = Parity(SiftConfig(), sync)
+    for label, shape, pad in (("W < 8", (1, 6, 7, 5), (35, 35)), ("Wp odd", (2, 6, 20, 24), (35, 35)),
+                              ("Wp > W, vector", (1, 6, 20, 24), (35, 40)),
+                              ("warp edges", (1, 6, 33, 304), (0, 0)),
+                              ("warp edges, odd W", (1, 6, 33, 301), (0, 0)),
+                              ("block edges", (1, 6, 9, 2104), (0, 0)),
+                              ("unaligned base", (2, 6, 16, 640), (0, 0))):
+        n = int(np.prod(shape))
+        flat = torch.from_numpy(rng.normal(0, 1, n + 1).astype(np.float32)).to(dev)
+        gauss = flat[1:].view(shape) if label == "unaligned base" else flat[:n].view(shape)
+        par.grad(gauss, pad, f"edge: {label}", timed=False)
+        plan = gs.launch_plan(shape[0], shape[1] - 3, *shape[2:], max(shape[2], pad[0]),
+                              max(shape[3], pad[1]))
+        log(f"  grad_stencil (edge: {label}, {shape} -> pad {pad}, rows {plan['rows']}, threads "
+            f"{plan['threads']}, grid {plan['grid']}, vector "
+            f"{plan['vector'] and label != 'unaligned base'}): bit-identical")
+
+
+def shared_buffer_replay(sampled, sync) -> None:
+    """The descriptor-only call's sampler calls (one per octave, all writing
+    one shared buffer pair) replayed in order into fresh zero buffers by the
+    kernel and by the plain version: both equal the run's own buffers, and
+    every keypoint is sampled by at most one octave."""
+    import torch
+
+    from siftgpu_tpu_torch.ops import desc_sampler as dsm
+
+    py = sampled[0][3]
+    kern = (torch.zeros_like(py), torch.zeros_like(py))
+    plain = (torch.zeros_like(py), torch.zeros_like(py))
+    for args in sampled:
+        dsm.sample_gradients(*args[:5], kern)
+        dsm.sample_gradients_plain(*args[:5], plain)
+    sync()
+    for k, p, run in zip(kern, plain, sampled[-1][5]):
+        if not (torch_equal_bits(k, p) and torch_equal_bits(k, run)):
+            raise AssertionError("sample_gradients: the shared-buffer replay differs")
+    times = sum((a[2] >= 0).int() for a in sampled)
+    if int(times.max()) > 1:
+        raise AssertionError("sample_gradients: a keypoint was sampled on two octaves")
+    log(f"  sample_gradients: {len(sampled)} octaves into one shared buffer, kernel = plain = the "
+        f"run's buffer bit for bit; {int(times.sum())} of {times.numel()} keypoints sampled once")
 
 
 def cross(tx: float, ty: float) -> np.ndarray:
@@ -745,6 +833,16 @@ def facade_phase(dev, sync, frames, k):
         f"inlier rate {rate:.4f}")
     if rate < 0.9 or min(len(k0), len(k1)) < 100:
         raise AssertionError(f"facade: plain matching inlier rate {rate}")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        SiftTPU(["-v", "2"], device=dev, max_keypoints=k).run_sift(frames[0])
+    lines = printed.getvalue().splitlines()
+    for ln in lines:
+        log(f"  -v 2 | {ln}")
+    stages = [ln.split()[0] for ln in lines[2:]]
+    if not lines[0].startswith("#features:") or stages != [
+            "pyramid", "detect", "gradients", "orient+desc", "assemble", "TOTAL"]:
+        raise AssertionError(f"-v 2: unexpected output {lines}")
 
     Hm = np.array([[1, 0, SHIFT[0]], [0, 1, SHIFT[1]], [0, 0, 1]], np.float32)
     F = cross(*SHIFT)
@@ -777,9 +875,16 @@ def facade_phase(dev, sync, frames, k):
             raise AssertionError(f"guided {label}: gate operands differ between the card and the CPU")
     log("  gate operands: the card's bit-identical to the CPU's for H, F and H+F")
 
+    from siftgpu_tpu_torch.ops import desc_sampler as dsm
+
+    n0 = dsm.KERNEL.launches
     with recording(describe, "sample_gradients", sampled):
         sift.set_keypoint_list(k0)
         sift.run_sift_with_keypoints(frames[0])
+    n_oct = sift._cfg.octaves
+    if dev == "cuda" and dsm.KERNEL.launches - n0 != n_oct:
+        raise AssertionError(f"descriptor-only: {dsm.KERNEL.launches - n0} sampler launches, "
+                             f"not one per octave ({n_oct})")
     fk = sift._feats
     dk = fk.desc[0].cpu().numpy()
     if not bool(fk.mask.all()):
@@ -919,6 +1024,8 @@ def twoview_phase(dev, sync, h=H, w=W, k=K):
     log(f"  a repeated card run on the same draws: "
         f"{'bit-identical' if same else 'differs'} (points max diff "
         f"{float((again.points - res.points).abs().max()):.3g})")
+    if not same:
+        raise AssertionError("two-view: a repeated run on the same draws is not bit-identical")
 
     x0, x1, valid, _, thr = ransac_args[0]
     g = torch.Generator(device=dev).manual_seed(7)
@@ -1022,12 +1129,12 @@ def run(device: str, h=H, w=W, b=B, k=K):
     f_launches, sampled, gated, facade_calls = facade_phase(device, sync, frames[:2], k)
     for name in FACADE_KERNELS:
         launches[name] = f_launches[name]
-    for args in sampled:
-        par.sample(args, "facade")
+    live = [par.sample(args, f"facade octave {o}") for o, args in enumerate(sampled)]
+    shared_buffer_replay(sampled, sync)
     for args, label in zip(gated, ("H", "F", "H+F")):
         par.gated(args, f"facade {label}")
     log(f"  sample_gradients: bit-identical on the {len(sampled)} calls of "
-        "run_sift_with_keypoints (every octave, 512-keypoint chunks)")
+        f"run_sift_with_keypoints (one per octave, {live} of {sampled[0][2].shape[0]} rows live)")
 
     # ---- 4c. the two-view path, counted ----
     twoview_calls = twoview_phase(dev, sync, h, w, k)
@@ -1068,7 +1175,7 @@ def run(device: str, h=H, w=W, b=B, k=K):
                "device_ms": None, "plain_device_ms": None, "library_device_ms": None}
         if timing:
             kf, pl = [c.kern for c in calls], [c.plain for c in calls]
-            lb = [c.lib for c in calls] if all(c.lib for c in calls) else []
+            lb = [c.lib for c in calls if c.lib is not None]   # none where a call samples nothing
             # CUDA events around back-to-back calls (the host's launch cost
             # included), plain, kernel, library, kernel, library, plain,
             # summed over the path's calls; then device time alone

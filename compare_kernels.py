@@ -5,17 +5,29 @@
 
 DIR is the root of another checkout of this repository (for example the
 parent commit, unpacked with `git archive` into a directory that
-.gitignore lists).  The script loads that checkout's `detect_scores` and
-`match_best2` wrappers and CUDA sources beside this checkout's, builds both,
-and on the main path's inputs (4 x 480x640 frames, K = 2048: the 5 octaves'
-DoG volumes, the 3 consecutive pairs) and the facade's 3 guided calls
-(4096-padded sets, gates H, F, H+F) it:
+.gitignore lists).  The script loads that checkout's `detect_scores`,
+`match_best2`, `grad_stencil` and `sample_gradients` wrappers and CUDA
+sources beside this checkout's, builds both, and on the main path's inputs
+(4 x 480x640 frames, K = 2048: the 5 octaves' DoG and Gaussian volumes, the 3
+consecutive pairs), the facade's 3 guided calls (4096-padded sets, gates H,
+F, H+F) and its descriptor-only call (`describe_at_keypoints` at frame 0's
+own keypoints) it:
 
   1. checks that both give the same outputs bit for bit;
   2. times each call by device time (torch.profiler, the sum of the CUDA
      kernels' own time, mean of 5 rounds) in the order baseline, this,
      this, baseline, with each call's bound (`siftgpu_tpu_torch/bounds.py`);
-  3. times the host cost of one launch through each checkout's
+     the descriptor-only call's samplers as each checkout calls them (the
+     baseline's per octave and 512-keypoint chunk, this one's once per
+     octave), by device time and by CUDA events, and the whole call
+     (the baseline's `frontend/redetect.py`, `describe.py` and `orient.py`
+     on its own kernels) by host clock, synchronised, and device time;
+  3. runs each checkout's `optim/ba.py::run_ba` on the problem that
+     `two_view_reconstruct` builds for chip_smoke.py's phase-4c pair:
+     host ms (synchronised; the median of 8 rounds, the order alternating),
+     device ms and kernel launches per call, and its synchronising calls
+     (torch's sync debug mode);
+  4. times the host cost of one launch through each checkout's
      `ops/_build.py::Kernel.launch`: a host clock over 2,000 launches of the
      `grad_stencil` kernel on a 1 x 4 x 8 x 8 volume, synchronised once at
      the end, in the order baseline, this, this, baseline.
@@ -31,16 +43,19 @@ import importlib.util
 import json
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from chip_smoke import K, SHIFT, card_line, device_ms, make_frames, recording, torch_equal_bits
+from chip_smoke import (H, K, RVEC, SHIFT, T_GT, W, card_line, device_ms, make_frames, recording,
+                        time_ms, torch_equal_bits)
 from siftgpu_tpu_torch import MatchConfig, SiftConfig, bounds, extract_features
+from siftgpu_tpu_torch.frontend import describe, pyramid, redetect
 from siftgpu_tpu_torch.frontend import match as fmatch
-from siftgpu_tpu_torch.frontend import pyramid
-from siftgpu_tpu_torch.ops import _build, detect_scores, grad_stencil, match_kernel
+from siftgpu_tpu_torch.ops import _build, desc_sampler, detect_scores, grad_stencil, match_kernel
+from siftgpu_tpu_torch.optim import ba
 from siftgpu_tpu_torch.pipeline.api import SiftMatchTPU, SiftTPU
 
 
@@ -57,14 +72,19 @@ def load_module(name: str, path: Path, package: str | None = None):
     return mod
 
 
+def baseline_module(root: Path, sub: str, module: str):
+    """The baseline checkout's `<sub>/<module>.py`, loaded beside this
+    one's; its relative imports resolve to this checkout's package."""
+    return load_module(f"siftgpu_tpu_torch.{sub}._baseline_{module}",
+                       root / "siftgpu_tpu_torch" / sub / f"{module}.py", f"siftgpu_tpu_torch.{sub}")
+
+
 def baseline_wrapper(root: Path, module: str):
-    """The baseline checkout's `ops/<module>.py`, loaded beside this one's:
-    its relative imports resolve to this checkout's package, and its
-    kernels are rebound to the baseline's CUDA source (this checkout's
+    """The baseline checkout's `ops/<module>.py`, loaded beside this one's,
+    its kernels rebound to the baseline's CUDA source (this checkout's
     kernel registry is left as it was)."""
     saved = dict(_build.KERNELS)
-    mod = load_module(f"siftgpu_tpu_torch.ops._baseline_{module}",
-                      root / "siftgpu_tpu_torch" / "ops" / f"{module}.py", "siftgpu_tpu_torch.ops")
+    mod = baseline_module(root, "ops", module)
     for v in vars(mod).values():
         if isinstance(v, _build.Kernel):
             v.source = root / "siftgpu_tpu_torch" / "csrc" / v.source.name
@@ -97,6 +117,7 @@ def main_inputs(device):
     for i in range(2):
         matcher.set_descriptors(i, descs[i])
         matcher.set_feature_location(i, locs[i])
+    keys = torch.from_numpy(locs[0][None]).to(device)
     Hm = np.array([[1, 0, SHIFT[0]], [0, 1, SHIFT[1]], [0, 0, 1]], np.float32)
     F = np.array([[0, 0, SHIFT[1]], [0, 0, -SHIFT[0]], [-SHIFT[1], SHIFT[0], 0]], np.float32)
     gated = []
@@ -104,7 +125,7 @@ def main_inputs(device):
         for kw in (dict(H=Hm, hdistmax=3.0), dict(F=F, fdistmax=2.0),
                    dict(H=Hm, F=F, hdistmax=3.0, fdistmax=2.0)):
             matcher.get_guided_sift_match(**kw)
-    return cfg, [oc.dog for oc in pyr], match, gated
+    return cfg, pyr, match, gated, (images[:1], keys)
 
 
 def same(a, b) -> bool:
@@ -137,6 +158,139 @@ def host_us(kern, fn_name, args, ptr, sync, n=2000):
     return (time.perf_counter() - t0) / n * 1e6
 
 
+def profiled(fn, sync, iters=3):
+    """(device ms, kernel launches) per call of fn, by torch.profiler."""
+    fn()
+    sync()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        sync()
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kern) / 1e3 / iters,
+            sum(e.count for e in kern) / iters)
+
+
+def host_ms(fn, sync, n=5):
+    """Host-clock ms per call of fn, each call synchronised, after a warm-up."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+        sync()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def baseline_descriptor_only(root: Path, old_gs, old_ds):
+    """The baseline's descriptor-only stack on its own kernels: its
+    redetect, describe and orient modules, their kernel wrappers rebound to
+    the baseline's."""
+    old_orient = baseline_module(root, "frontend", "orient")
+    old_orient.grad_stencil = old_gs.grad_stencil
+    old_describe = baseline_module(root, "frontend", "describe")
+    old_describe.sample_gradients = old_ds.sample_gradients
+    old_redetect = baseline_module(root, "frontend", "redetect")
+    old_redetect.orient, old_redetect.describe = old_orient, old_describe
+    return old_redetect, old_describe
+
+
+def descriptor_only(old_redetect, old_describe, old_ds, cfg, images, keys, sync):
+    """The descriptor-only call, baseline against this checkout: the same
+    descriptors; the samplers' device and events ms, as each calls them; the
+    whole call's host and device ms."""
+    old_calls, new_calls = [], []
+    with recording(old_describe, "sample_gradients", old_calls):
+        old = old_redetect.describe_at_keypoints(images, keys, cfg)
+    with recording(describe, "sample_gradients", new_calls):
+        new = redetect.describe_at_keypoints(images, keys, cfg)
+    sync()
+    if not (torch.equal(old.desc, new.desc) and torch.equal(old.mask, new.mask)):
+        raise AssertionError("descriptor-only: the two checkouts' descriptors differ")
+    bufs = [tuple(b.clone() for b in a[5]) for a in new_calls]
+    old_fns = [lambda a=a: old_ds.sample_gradients(*a) for a in old_calls]
+    new_fns = [lambda a=a, b=b: desc_sampler.sample_gradients(*a[:5], b)
+               for a, b in zip(new_calls, bufs)]
+    dev = [device_ms(fns, sync, 5) for fns in (old_fns, new_fns, new_fns, old_fns)]
+    ev = [time_ms(lambda fns=fns: [f() for f in fns], sync, 20)
+          for fns in (old_fns, new_fns, new_fns, old_fns)]
+    works = lambda calls: [bounds.sample_gradients_work(*a[0].shape, *a[3].shape,
+                                                        sampled=int((a[2] >= 0).sum()))
+                           for a in calls]
+    b_old, b_new = bounds.bound(works(old_calls))[0], bounds.bound(works(new_calls))[0]
+    old_call = lambda: old_redetect.describe_at_keypoints(images, keys, cfg)
+    new_call = lambda: redetect.describe_at_keypoints(images, keys, cfg)
+    whole = [host_ms(fn, sync, 10) for fn in (old_call, new_call, new_call, old_call)]
+    whole_dev = [profiled(fn, sync) for fn in (old_call, new_call, new_call, old_call)]
+    log(f"  samplers: {len(old_calls)} calls ({sum(int(a[3].shape[0]) for a in old_calls)} rows "
+        f"sampled) / {len(new_calls)} calls "
+        f"({sum(int((a[2] >= 0).sum()) for a in new_calls)} rows sampled); device ms baseline "
+        f"{dev[0]:.4f} / this {dev[1]:.4f} / this {dev[2]:.4f} / baseline {dev[3]:.4f}; events ms "
+        f"{ev[0]:.4f} / {ev[1]:.4f} / {ev[2]:.4f} / {ev[3]:.4f}; bound {b_old:.4f} / {b_new:.4f} ms")
+    log(f"  describe_at_keypoints ({int(new.mask.sum())} keypoints): host ms "
+        + " / ".join(f"{t:.3f}" for t in whole) + "; device ms, launches "
+        + " / ".join(f"{d:.4f}, {n:.0f}" for d, n in whole_dev))
+    return {"calls": [len(old_calls), len(new_calls)], "sampler_device_ms": dev,
+            "sampler_events_ms": ev, "sampler_bound_ms": [b_old, b_new],
+            "call_host_ms": whole, "call_device_ms": [d for d, _ in whole_dev],
+            "call_launches": [n for _, n in whole_dev]}
+
+
+def bundle_adjustment(root: Path, sync):
+    """run_ba of each checkout on the problem two_view_reconstruct builds
+    for chip_smoke.py's phase-4c pair (480x640, K = 2048)."""
+    from siftgpu_tpu_torch.oracle import fixtures
+    from siftgpu_tpu_torch.pipeline import twoview
+
+    f = 180.0 * W / 200.0
+    intr = (f, f, W / 2.0, H / 2.0)
+    img0, img1, _ = fixtures.two_plane_stereo(H, W, intr, RVEC, T_GT, d_near=5.0, d_far=10.0,
+                                              seed=2)
+    images = torch.from_numpy(np.stack([img0, img1])).cuda()
+    intr_t = torch.tensor(intr, dtype=torch.float32, device="cuda")
+    problems = []
+    with recording(ba, "run_ba", problems):
+        twoview.two_view_reconstruct(images, intr_t, SiftConfig(height=H, width=W, max_keypoints=K),
+                                     MatchConfig(max_sift=K, max_match=K),
+                                     torch.Generator(device="cuda").manual_seed(7))
+    args = problems[0]
+    old_ba = baseline_module(root, "optim", "ba")
+    old, new = (lambda: old_ba.run_ba(*args)), (lambda: ba.run_ba(*args))
+    a, b, c = old(), new(), new()
+    sync()
+    if not all(torch_equal_bits(x, y) for x, y in zip(b, c)):
+        raise AssertionError("run_ba: two runs on the card differ")
+    ms = ([], [])   # 8 rounds of 2 calls each, the order alternating
+    for i in range(8):
+        for j in ((0, 1) if i % 2 == 0 else (1, 0)):
+            ms[j].append(host_ms((old, new)[j], sync, 2))
+    med = [float(np.median(m)) for m in ms]
+    dev = [profiled(fn, sync) for fn in (old, new, new, old)]
+    syncs = [sync_warnings(fn) for fn in (old, new)]
+    log(f"  run_ba (M = {args[0].cams.shape[0]}, P = {args[0].points.shape[0]}, N = "
+        f"{args[0].cam_idx.shape[0]}): cost baseline {float(a.cost):.6g}, this {float(b.cost):.6g} "
+        f"(this checkout's two runs bit-identical); host ms median baseline {med[0]:.3f} / this "
+        f"{med[1]:.3f} (rounds {[round(t, 1) for t in ms[0]]} / {[round(t, 1) for t in ms[1]]}); "
+        "device ms, launches " + " / ".join(f"{d:.3f}, {n:.0f}" for d, n in dev)
+        + f"; synchronising calls baseline {syncs[0]} / this {syncs[1]}")
+    return {"host_ms": ms, "host_ms_median": med, "device_ms": [d for d, _ in dev],
+            "launches": [n for _, n in dev], "cost": [float(a.cost), float(b.cost)],
+            "sync_warnings": syncs}
+
+
+def sync_warnings(fn) -> int:
+    """Synchronising CUDA calls in one call of fn (torch's sync debug mode)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", required=True, type=Path,
@@ -150,12 +304,16 @@ def main() -> int:
     log(card_line())
     old_ds = baseline_wrapper(root, "detect_scores")
     old_mk = baseline_wrapper(root, "match_kernel")
-    for kern in (old_ds.KERNEL, old_mk.KERNEL, old_mk.GATED, detect_scores.KERNEL,
-                 match_kernel.KERNEL, match_kernel.GATED):
+    old_gs = baseline_wrapper(root, "grad_stencil")
+    old_sm = baseline_wrapper(root, "desc_sampler")
+    for kern in (old_ds.KERNEL, old_mk.KERNEL, old_mk.GATED, old_gs.KERNEL, old_sm.KERNEL):
         kern.lib()
-    cfg, dogs, match, gated = main_inputs("cuda")
+    _build.build_all()
+    cfg, pyr, match, gated, (img0, keys) = main_inputs("cuda")
+    dogs = [oc.dog for oc in pyr]
     sync()
-    out = {"card": card_line(), "detect_scores": [], "match_best2": [], "match_best2_gated": []}
+    out = {"card": card_line(), "detect_scores": [], "match_best2": [], "match_best2_gated": [],
+           "grad_stencil": []}
 
     log("detect_scores, per octave of the main path")
     for o, dog in enumerate(dogs):
@@ -175,7 +333,23 @@ def main() -> int:
             f"gate {a[6]!r} {tuple(a[0].shape)} x {tuple(a[1].shape)}",
             (lambda a=a: old_mk.match_best2_gated(*a), lambda a=a: match_kernel.match_best2_gated(*a)),
             bounds.match_best2_work(*a[0].shape[:2], a[1].shape[1], gate=a[6]), sync))
-    for name in ("detect_scores", "match_best2", "match_best2_gated"):
+    log("grad_stencil, per octave of the main path")
+    win = 2 * cfg.orient_window_radius + 1
+    S = cfg.dog_levels
+    for o, oc in enumerate(pyr):
+        B, _, Hg, Wg = oc.gauss.shape
+        out["grad_stencil"].append(compare(
+            f"octave {o} {tuple(oc.gauss.shape)}",
+            (lambda g=oc.gauss: old_gs.grad_stencil(g, S, win, win),
+             lambda g=oc.gauss: grad_stencil.grad_stencil(g, S, win, win)),
+            bounds.grad_stencil_work(B, S, Hg, Wg, max(Hg, win), max(Wg, win)), sync))
+    log("descriptor-only mode (frame 0's own keypoints)")
+    old_redetect, old_describe = baseline_descriptor_only(root, old_gs, old_sm)
+    out["descriptor_only"] = descriptor_only(old_redetect, old_describe, old_sm, cfg, img0, keys,
+                                             sync)
+    log("bundle adjustment (two-view, 10 LM x 30 CG)")
+    out["run_ba"] = bundle_adjustment(root, sync)
+    for name in ("detect_scores", "match_best2", "match_best2_gated", "grad_stencil"):
         t = np.array([r["device_ms"] for r in out[name]]).sum(0)
         out[name + "_sum"] = t.tolist()
         log(f"  {name}, summed over the path's calls: baseline {t[0]:.4f} / this {t[1]:.4f} / "

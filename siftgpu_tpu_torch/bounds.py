@@ -19,7 +19,7 @@ small and the kernels are bound by bytes except `match_best2`.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, NamedTuple, Tuple
+from typing import Dict, Iterable, NamedTuple, Optional, Tuple
 
 __all__ = ["Work", "PEAK_BYTES_PER_S", "PEAK_OPS_PER_S", "bound", "blur_octave_work",
            "detect_scores_work", "grad_stencil_work", "orient_sample_work",
@@ -121,11 +121,14 @@ def match_best2_work(P: int, N0: int, N1: int, D: int = 128, gate=None) -> Work:
     return Work(read + write, {"int8": 2 * D * pairs, "f32": (5 + GATE_OPS[gate]) * pairs})
 
 
-def sample_gradients_work(P: int, H: int, W: int, N: int, G2: int) -> Work:
-    """Kernel 5: N x G2 sample coordinates (y, x) and N plane indices read,
-    the bf16 planes but no more than four taps per sample of each; sgx, sgy
-    [N, G2] f32 written; per sample the floor, clamp, fraction and bilinear
-    arithmetic of both planes."""
-    grads = min(2 * P * H * W * BF16, 2 * 4 * N * G2 * BF16)
-    read = 2 * N * G2 * F32 + N * I32 + grads
-    return Work(read + 2 * N * G2 * F32, {"f32": (SAMPLE_OPS - 8 - 5) * N * G2})
+def sample_gradients_work(P: int, H: int, W: int, N: int, G2: int,
+                          sampled: Optional[int] = None) -> Work:
+    """Kernel 5 on N keypoints, `sampled` of them not skipped (all N by
+    default): N plane indices read; for each sampled keypoint its G2 sample
+    coordinates (y, x) read, the bf16 planes but no more than four taps per
+    sample of each, and its sgx, sgy rows (G2 f32 each) written; per sample
+    the floor, clamp, fraction and bilinear arithmetic of both planes."""
+    n = N if sampled is None else sampled
+    grads = min(2 * P * H * W * BF16, 2 * 4 * n * G2 * BF16)
+    read = 2 * n * G2 * F32 + N * I32 + grads
+    return Work(read + 2 * n * G2 * F32, {"f32": (SAMPLE_OPS - 8 - 5) * n * G2})

@@ -9,12 +9,15 @@ Port of `siftgpu_tpu/frontend/describe.py`, two paths:
     (an angle that rounds to 2π) puts its weight on bin 0, as the oracle's
     `floor(ob) % NB` does.
   - the unfused path (descriptor-only mode, `frontend/redetect.py`):
-    `compute_descriptors` takes the grid coordinates (`_sample_coords`), the
-    bilinear samples (`_bilerp`, through `ops/desc_sampler.py`: the CUDA
-    kernel on the card, the plain gather on the CPU), and bins them with
-    `_bin_chunk`: one-hot soft assignment and a double spatial contraction in
-    full f32.  Its wrap edge keeps `clip(floor(ob), 0, NB-1)`: ob == NB lands
-    on bin NB-1.
+    `describe_octaves` takes every keypoint's grid coordinates once
+    (`_sample_coords`), samples each octave's keypoints on that octave's
+    gradient stack into one shared buffer (one `ops/desc_sampler.py` call
+    per octave, the other octaves' keypoints skipped: the CUDA kernel on the
+    card, the plain gather on the CPU), and bins all keypoints at once, in
+    512-keypoint chunks, with `_bin_chunk`: one-hot soft assignment and a
+    double spatial contraction in full f32.  Its wrap edge keeps
+    `clip(floor(ob), 0, NB-1)`: ob == NB lands on bin NB-1.
+    `compute_descriptors` is its one-octave case.
 
 Both end in `finalize_descriptors` (normalize -> clip 0.2 -> renormalize ->
 uint8).  The TPU's bf16 binning has no counterpart: the port bins in f32 on
@@ -25,6 +28,7 @@ binning is XLA, not Pallas); its contractions run in full f32 (`full_f32`).
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -34,7 +38,7 @@ from ..ops.desc_sampler import sample_gradients
 from .orient import GradStack
 from ..core.precision import full_f32
 
-__all__ = ["bin_descriptors", "finalize_descriptors", "compute_descriptors"]
+__all__ = ["bin_descriptors", "finalize_descriptors", "compute_descriptors", "describe_octaves"]
 
 _TWO_PI = 6.283185307179586
 
@@ -131,23 +135,6 @@ def _sample_coords(y, x, sigma, theta, cfg: SiftConfig):
     return py, px
 
 
-def _bilerp(grads: GradStack, py, px, lvl):
-    """Bilinear samples of gx, gy at py, px [B, C, G, G] on level `lvl`
-    [B, C] (0-based) -> sgx, sgy [B, C, G, G], through `sample_gradients`
-    on the flattened [B·S, Hp, Wp] planes (the reference's `_bilerp_pallas`
-    layout)."""
-    B, C, G, _ = py.shape
-    S, Hp, Wp = grads.gx.shape[1:]
-    b_idx = torch.arange(B, dtype=torch.int32, device=py.device)[:, None]
-    plane = (b_idx * S + lvl.to(torch.int32)).reshape(B * C)
-    sgx, sgy = sample_gradients(
-        grads.gx.reshape(B * S, Hp, Wp), grads.gy.reshape(B * S, Hp, Wp),
-        plane.contiguous(), py.reshape(B * C, G * G).contiguous(),
-        px.reshape(B * C, G * G).contiguous(),
-    )
-    return sgx.reshape(B, C, G, G), sgy.reshape(B, C, G, G)
-
-
 def _bin_chunk(sgx, sgy, theta, cfg: SiftConfig):
     """Raw descriptors [B, C, 128] from samples sgx, sgy [B, C, G²] (out of
     image samples zeroed) and theta [B, C]: one-hot soft orientation
@@ -174,31 +161,48 @@ def _bin_chunk(sgx, sgy, theta, cfg: SiftConfig):
     return desc.reshape(B, C, D * D * NB)
 
 
-def _descriptor_chunk(grads: GradStack, y, x, sigma, theta, lvl, cfg: SiftConfig):
-    """Raw descriptors for a chunk of keypoints. y..lvl: [B, C]."""
+def describe_octaves(grads: Sequence[GradStack], octave, y, x, sigma, theta, grad_level,
+                     cfg: SiftConfig, chunk: int = 512) -> torch.Tensor:
+    """uint8 descriptors [B, K, 128] of keypoints described each on its own
+    octave: `grads` holds the octaves' gradient stacks, octave [B, K] int
+    the keypoint's octave (negative: not sampled), y, x, sigma (octave-local)
+    and theta [B, K], grad_level [B, K] in [1, S].  Samples outside the
+    keypoint's octave's true image are zeroed; binning runs in chunks of
+    `chunk` keypoints to bound the [B, chunk, G, G, NB] intermediate."""
     G = cfg.descriptor_grid
-    B, C = y.shape
-    py, px = _sample_coords(y, x, sigma, theta, cfg)
-    inb = (px >= 0) & (px <= grads.w - 1) & (py >= 0) & (py <= grads.h - 1)
-    sgx, sgy = _bilerp(grads, py, px, lvl)
-    sgx = (sgx * inb).reshape(B, C, G * G)
-    sgy = (sgy * inb).reshape(B, C, G * G)
-    return _bin_chunk(sgx, sgy, theta, cfg)
+    B, K = y.shape
+    dev = y.device
+    py, px = _sample_coords(y, x, sigma, theta, cfg)       # [B, K, G, G]
+    h = torch.zeros((B, K), dtype=torch.float32, device=dev)
+    w = torch.zeros_like(h)
+    for o, g in enumerate(grads):
+        h = torch.where(octave == o, float(g.h), h)
+        w = torch.where(octave == o, float(g.w), w)
+    h, w = h[..., None, None], w[..., None, None]
+    inb = (px >= 0) & (px <= w - 1) & (py >= 0) & (py <= h - 1)
+    pyf = py.reshape(B * K, G * G).contiguous()
+    pxf = px.reshape(B * K, G * G).contiguous()
+    out = (torch.zeros_like(pyf), torch.zeros_like(pyf))
+    b_idx = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+    lvl = grad_level.to(torch.int32) - 1
+    for o, g in enumerate(grads):
+        S, Hp, Wp = g.gx.shape[1:]
+        plane = torch.where(octave == o, b_idx * S + lvl, -1).to(torch.int32).reshape(B * K)
+        sample_gradients(g.gx.reshape(B * S, Hp, Wp), g.gy.reshape(B * S, Hp, Wp),
+                         plane.contiguous(), pyf, pxf, out)
+    sgx = (out[0].reshape(B, K, G, G) * inb).reshape(B, K, G * G)
+    sgy = (out[1].reshape(B, K, G, G) * inb).reshape(B, K, G * G)
+    outs = [_bin_chunk(sgx[:, i : i + chunk], sgy[:, i : i + chunk], theta[:, i : i + chunk], cfg)
+            for i in range(0, K, chunk)]
+    raw = torch.cat(outs, dim=1) if outs else y.new_zeros((B, 0, cfg.descriptor_dim))
+    return finalize_descriptors(raw, cfg)
 
 
 def compute_descriptors(grads: GradStack, y, x, sigma, theta, grad_level,
                         cfg: SiftConfig, chunk: int = 512, sampler=None) -> torch.Tensor:
     """uint8 descriptors [B, K2, 128] at keypoints y, x, sigma, theta,
-    grad_level [B, K2] (octave-local; grad_level in [1, S]), chunked over
-    keypoints to bound the [B, chunk, G, G, NB] intermediate.  `sampler` is
-    carried for call compatibility and ignored: the device picks the route."""
-    B, K2 = y.shape
-    lvl = grad_level - 1
-    outs = [
-        _descriptor_chunk(grads, y[:, i : i + chunk], x[:, i : i + chunk],
-                          sigma[:, i : i + chunk], theta[:, i : i + chunk],
-                          lvl[:, i : i + chunk], cfg)
-        for i in range(0, K2, chunk)
-    ]
-    raw = torch.cat(outs, dim=1) if outs else y.new_zeros((B, 0, cfg.descriptor_dim))
-    return finalize_descriptors(raw, cfg)
+    grad_level [B, K2] of one octave (octave-local; grad_level in [1, S]):
+    `describe_octaves` with every keypoint on `grads`.  `sampler` is carried
+    for call compatibility and ignored: the device picks the route."""
+    return describe_octaves([grads], torch.zeros_like(grad_level), y, x, sigma, theta,
+                            grad_level, cfg, chunk)

@@ -4,9 +4,13 @@ Port of `siftgpu_tpu/frontend/redetect.py` (`SiftGPU::SetKeypointList` +
 `RunSIFT`): callers supply (x, y, sigma, theta) in image coordinates and get
 128-D descriptors.  Each keypoint is assigned to the octave where its scale
 is octave-local in [sigma0, 2·sigma0), and to the Gaussian level nearest its
-scale (`torch.round`, half to even, as `jnp.round`); every octave describes
-the full list and keeps the rows assigned to it, so the shapes are fixed.
-The samples go through `ops/desc_sampler.py` (`describe.compute_descriptors`).
+scale (`torch.round`, half to even, as `jnp.round`).  Where the reference
+describes the full list on every octave and keeps the rows assigned to each
+(fixed shapes), the port samples each keypoint once, on its own octave
+(`describe.describe_octaves`: one `ops/desc_sampler.py` call per octave into
+a shared buffer, one binning pass).  Its octave-local coordinates divide by
+its own octave's scale, a power of two, so they are the bits the
+reference's per-octave scalar arithmetic gives.
 """
 
 from __future__ import annotations
@@ -46,19 +50,20 @@ def describe_at_keypoints(images: torch.Tensor, keypoints: torch.Tensor,
     octave = oct_f.clamp(0, cfg.octaves - 1).to(torch.int32)
     valid = (sig > 0) & (oct_f >= 0) & (oct_f < cfg.octaves)
 
-    desc = torch.zeros((B, K, cfg.descriptor_dim), dtype=torch.uint8, device=images.device)
-    shift = 0.5 if cfg.lowe_origin else 0.0
+    # each keypoint's own octave (-1: none) and that octave's scale
+    live = torch.where(valid, octave, -1)
+    scale = torch.ones_like(x)
     for o in range(cfg.octaves):
-        sel = (octave == o) & valid
-        scale = cfg.octave_scale(o)
-        xo = x / scale - shift
-        yo = y / scale - shift
-        sigma_local = torch.clamp(sig / scale, cfg.sigma0 * 0.5, cfg.sigma0 * 4.0)
-        lvl = torch.round(S * _log2(torch.clamp(sigma_local, min=1e-6) / cfg.sigma0))
-        lvl = lvl.clamp(1, S).to(torch.int32)
-        grads = orient.gradient_stack(pyr[o].gauss, cfg)
-        d = describe.compute_descriptors(grads, yo, xo, sigma_local, th, lvl, cfg)
-        desc = torch.where(sel[..., None], d, desc)
+        scale = torch.where(live == o, cfg.octave_scale(o), scale)
+    shift = 0.5 if cfg.lowe_origin else 0.0
+    xo = x / scale - shift
+    yo = y / scale - shift
+    sigma_local = torch.clamp(sig / scale, cfg.sigma0 * 0.5, cfg.sigma0 * 4.0)
+    lvl = torch.round(S * _log2(torch.clamp(sigma_local, min=1e-6) / cfg.sigma0))
+    lvl = lvl.clamp(1, S).to(torch.int32)
+    grads = [orient.gradient_stack(oc.gauss, cfg) for oc in pyr]
+    desc = describe.describe_octaves(grads, live, yo, xo, sigma_local, th, lvl, cfg)
+    desc = torch.where(valid[..., None], desc, 0)
 
     return Features(x=x, y=y, sigma=sig, theta=th, response=torch.zeros_like(x),
                     octave=octave, desc=desc, mask=valid)

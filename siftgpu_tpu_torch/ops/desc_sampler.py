@@ -13,7 +13,9 @@ matmul:
 
 with the bf16 taps widened to f32 and the sum taken left to right.  The
 kernel (`csrc/desc_sampler.cu`, built with -fmad=false) and the plain
-version are bit-identical.
+version are bit-identical.  A keypoint with a negative plane is skipped, so
+the sampling of several octaves can share one output buffer (`out`): each
+octave's call fills the rows of its own keypoints.
 
 `sample_gradients(...)` takes the plain version for CPU tensors and the
 kernel for CUDA tensors.
@@ -37,7 +39,7 @@ KERNEL = _build.Kernel(
 )
 
 
-def sample_gradients_plain(gx, gy, plane, py, px):
+def sample_gradients_plain(gx, gy, plane, py, px, out=None):
     """Plain PyTorch version; see `sample_gradients` for the contract."""
     P, H, W = gx.shape
     x0 = torch.floor(px).to(torch.int64).clamp(0, W - 1)
@@ -46,7 +48,8 @@ def sample_gradients_plain(gx, gy, plane, py, px):
     y1 = (y0 + 1).clamp(max=H - 1)
     fx = (px - x0.to(torch.float32)).clamp(0.0, 1.0)
     fy = (py - y0.to(torch.float32)).clamp(0.0, 1.0)
-    base = plane.to(torch.int64)[:, None] * (H * W)
+    live = (plane >= 0)[:, None]
+    base = plane.to(torch.int64).clamp(min=0)[:, None] * (H * W)
 
     def bilerp(f):
         flat = f.reshape(-1)
@@ -57,10 +60,13 @@ def sample_gradients_plain(gx, gy, plane, py, px):
         return (at(y0, x0) * (1 - fy) * (1 - fx) + at(y0, x1) * (1 - fy) * fx
                 + at(y1, x0) * fy * (1 - fx) + at(y1, x1) * fy * fx)
 
-    return bilerp(gx), bilerp(gy)
+    out = out if out is not None else (torch.zeros_like(py), torch.zeros_like(py))
+    for o, f in zip(out, (gx, gy)):
+        o.copy_(torch.where(live, bilerp(f), o))
+    return out
 
 
-def _sample_gradients_cuda(gx, gy, plane, py, px):
+def _sample_gradients_cuda(gx, gy, plane, py, px, out=None):
     _build.check_tensor(gx, "gx", torch.bfloat16, 3)
     _build.check_tensor(gy, "gy", torch.bfloat16, 3)
     _build.check_tensor(plane, "plane", torch.int32, 1)
@@ -71,21 +77,28 @@ def _sample_gradients_cuda(gx, gy, plane, py, px):
     if gy.shape != gx.shape or plane.shape[0] != N or px.shape != py.shape:
         raise ValueError(f"shapes: gx {tuple(gx.shape)}, gy {tuple(gy.shape)}, "
                          f"plane {tuple(plane.shape)}, py {tuple(py.shape)}, px {tuple(px.shape)}")
-    sgx = torch.empty((N, G2), dtype=torch.float32, device=gx.device)
-    sgy = torch.empty((N, G2), dtype=torch.float32, device=gx.device)
+    if out is None:
+        out = (torch.zeros_like(py), torch.zeros_like(py))
+    for name, o in zip(("out[0]", "out[1]"), out):
+        _build.check_tensor(o, name, torch.float32, 2)
+        if o.shape != py.shape:
+            raise ValueError(f"{name}: shape {tuple(o.shape)}, expected {tuple(py.shape)}")
     if N == 0 or G2 == 0:
-        return sgx, sgy
+        return out
     p = _build.ptr
     KERNEL.launch("sample_gradients_launch", gx.device, p(gx), p(gy), p(plane),
-                  p(py), p(px), p(sgx), p(sgy), N, H, W, G2)
-    return sgx, sgy
+                  p(py), p(px), p(out[0]), p(out[1]), N, H, W, G2)
+    return out
 
 
-def sample_gradients(gx, gy, plane, py, px):
+def sample_gradients(gx, gy, plane, py, px, out=None):
     """gx, gy: [P, H, W] bf16 gradient planes; plane: [N] int32 plane of each
-    keypoint, in [0, P); py, px: [N, G²] f32 absolute sample coordinates.
-    Returns (sgx, sgy) [N, G²] f32 bilinear samples (clamped at the plane's
-    edges; the caller zeroes samples outside the true image)."""
+    keypoint, in [0, P), or negative to skip the keypoint; py, px: [N, G²]
+    f32 absolute sample coordinates; out: an optional pair of [N, G²] f32
+    buffers to write into (new zero buffers otherwise).  Returns (sgx, sgy)
+    [N, G²]: the bilinear samples of every keypoint that is not skipped
+    (clamped at the plane's edges; the caller zeroes samples outside the
+    true image); a skipped keypoint's rows keep their bytes."""
     if gx.device.type == "cpu":
-        return sample_gradients_plain(gx, gy, plane, py, px)
-    return _sample_gradients_cuda(gx, gy, plane, py, px)
+        return sample_gradients_plain(gx, gy, plane, py, px, out)
+    return _sample_gradients_cuda(gx, gy, plane, py, px, out)

@@ -10,8 +10,9 @@ over Gaussian levels 1..S, zero beyond (H, W) up to (Hp, Wp) =
 (max(H, min_h), max(W, min_w)), stored as bf16 with round-to-nearest-even.
 
 `grad_stencil(gauss, S, min_h, min_w)` takes the plain version for a CPU
-tensor and the CUDA kernel (`csrc/grad_stencil.cu`) for a CUDA tensor; the
-two are bit-identical (one subtraction and one exact halving per value).
+tensor and the CUDA kernel (`csrc/grad_stencil.cu`, its launch stated by
+`launch_plan`) for a CUDA tensor; the two are bit-identical (one subtraction
+and one exact halving per value).
 """
 
 from __future__ import annotations
@@ -22,13 +23,39 @@ import torch
 
 from . import _build
 
-__all__ = ["grad_stencil", "grad_stencil_plain", "KERNEL"]
+__all__ = ["grad_stencil", "grad_stencil_plain", "launch_plan", "KERNEL"]
 
 KERNEL = _build.Kernel(
     "grad_stencil", "grad_stencil.cu",
     {"grad_stencil_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
      + [ctypes.c_void_p]},
 )
+
+# csrc/grad_stencil.cu's constants: consecutive x of a thread, its rows on
+# large planes, the threads of a block (at most), and the blocks a grid of
+# such strips needs (4 per SM of the H100's 132), else a thread takes 1 row
+COLS, ROWS, THREADS, MIN_BLOCKS = 8, 4, 256, 4 * 132
+
+
+def launch_plan(B: int, S: int, H: int, W: int, Hp: int, Wp: int) -> dict:
+    """The kernel's launch for gauss [B, S+3, H, W] -> [B, S, Hp, Wp], as
+    `csrc/grad_stencil.cu` runs it: a thread owns 8 consecutive x (a
+    column chunk) and a strip of `rows` rows (4 where that grid has at
+    least MIN_BLOCKS blocks, else 1); a block is `threads` = (tx, ty), tx
+    the plane's chunks rounded up to whole warps (at most 256) and ty =
+    256 // tx strips; the grid is (column blocks, strip blocks, B * S
+    planes).  `vector`: W and Wp are multiples of 8, so the kernel loads
+    float4 pairs and stores 16-byte bf16 vectors (given 16-byte aligned
+    pointers, as PyTorch allocates them); scalar accesses otherwise."""
+    if min(B, S, H, W) <= 0 or Hp < H or Wp < W:
+        raise ValueError(f"launch_plan: bad shapes ({B}, {S}, {H}, {W}) -> ({Hp}, {Wp})")
+    chunks = -(-Wp // COLS)
+    tx = THREADS if chunks >= THREADS else -(-chunks // 32) * 32
+    ty = THREADS // tx
+    gx = -(-chunks // tx)
+    rows = ROWS if gx * -(-Hp // (ROWS * ty)) * B * S >= MIN_BLOCKS else 1
+    return dict(cols=COLS, rows=rows, threads=(tx, ty), grid=(gx, -(-Hp // (rows * ty)), B * S),
+                vector=W % COLS == 0 and Wp % COLS == 0)
 
 
 def grad_stencil_plain(gauss: torch.Tensor, S: int, min_h: int, min_w: int):

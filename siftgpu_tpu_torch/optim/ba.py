@@ -2,7 +2,7 @@
 
 Port of `siftgpu_tpu/optim/ba.py`.  The reduced camera system
 S = H_cc - W H_pp^-1 W^T is never materialized: S @ x is evaluated per
-observation with segment sums (`index_add_`).  Structure-of-arrays problem
+observation with segment sums (`Segments`).  Structure-of-arrays problem
 layout, fixed shapes, the LM loop and the CG loop as Python loops with
 accept/reject as `torch.where` — no host sync inside.  Gauge: camera 0 is
 frozen.
@@ -15,8 +15,10 @@ Differences from the reference:
     waits for the port of `parallel/` on `torch.distributed`;
   - every contraction runs with TF32 off (`full_f32`), the reference's
     "highest";
-  - on the card `index_add_` adds with float atomics in no fixed order, so
-    repeated runs may differ in the last bits.
+  - the segment sums add each segment's rows in their original order
+    (a stable sort of the index, then `torch.segment_reduce`), not with
+    float atomics: the same inputs give the same bits on every run, on the
+    card as on the CPU, where they equal an index-add in row order bit for bit.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ..core.precision import full_f32
 from ..geometry.pose import _so3_left_jacobian, exp_so3, hat
 
 __all__ = [
-    "BAProblem", "BAState", "project", "reprojection_residuals", "schur_solve",
+    "BAProblem", "BAState", "Segments", "project", "reprojection_residuals", "schur_solve",
     "run_ba", "refine_points",
 ]
 
@@ -147,8 +149,24 @@ def _inv3(A):
     return adj / det[..., None, None]
 
 
-def _segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    return torch.zeros((n, *x.shape[1:]), dtype=x.dtype, device=x.device).index_add_(0, idx, x)
+class Segments(NamedTuple):
+    """The plan of a segment sum over a fixed index: rows in the stable
+    order of their segment, and where each segment starts in that order."""
+    order: torch.Tensor    # [N] int64
+    offsets: torch.Tensor  # [n + 1] int64: segment k is order[offsets[k]:offsets[k+1]]
+
+    @classmethod
+    def of(cls, idx: torch.Tensor, n: int) -> "Segments":
+        """idx [N] in [0, n).  No host sync: the offsets come from
+        `searchsorted` on the sorted index, not from `bincount`."""
+        srt, order = torch.sort(idx.long(), stable=True)
+        return cls(order, torch.searchsorted(srt, torch.arange(n + 1, device=idx.device)))
+
+
+def _segment_sum(x: torch.Tensor, seg: Segments) -> torch.Tensor:
+    """[N, ...] -> [n, ...]: each segment's rows summed in their original
+    order, from 0 (empty segments give 0)."""
+    return torch.segment_reduce(x[seg.order], "sum", offsets=seg.offsets, unsafe=True)
 
 
 def _nonzero(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -156,21 +174,23 @@ def _nonzero(x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def schur_solve(r, Jc, Jp, cam_idx, pt_idx, M: int, P: int, lam, gauge_mask,
-                n_cg: int = 30, pt_fixed: Optional[torch.Tensor] = None):
+                n_cg: int = 30, pt_fixed: Optional[torch.Tensor] = None, segments=None):
     """Solve the damped normal equations via Schur complement + PCG.
     Returns (dcam [M, 6], dpt [P, 3]).  `gauge_mask` [M] zeroes frozen
-    cameras."""
+    cameras.  `segments`: the (camera, point) `Segments` of cam_idx and
+    pt_idx, made here when not given."""
     ci, pi = cam_idx.long(), pt_idx.long()
+    sc, sp = segments or (Segments.of(ci, M), Segments.of(pi, P))
     ein = torch.einsum
     with full_f32():
         # gradient blocks
-        bc = _segment_sum(-ein("nij,ni->nj", Jc, r), ci, M)            # [M, 6]
-        bp = _segment_sum(-ein("nij,ni->nj", Jp, r), pi, P)            # [P, 3]
+        bc = _segment_sum(-ein("nij,ni->nj", Jc, r), sc)               # [M, 6]
+        bp = _segment_sum(-ein("nij,ni->nj", Jp, r), sp)               # [P, 3]
         # block diagonals (damped)
         eye6 = torch.eye(6, dtype=r.dtype, device=r.device)
         eye3 = torch.eye(3, dtype=r.dtype, device=r.device)
-        Hcc = _segment_sum(ein("nij,nik->njk", Jc, Jc), ci, M) + lam * eye6
-        Hpp = _segment_sum(ein("nij,nik->njk", Jp, Jp), pi, P) + lam * eye3
+        Hcc = _segment_sum(ein("nij,nik->njk", Jc, Jc), sc) + lam * eye6
+        Hpp = _segment_sum(ein("nij,nik->njk", Jp, Jp), sp) + lam * eye3
         Hpp_inv = _inv3(Hpp)
         if pt_fixed is not None:
             # fixed landmarks: no marginalization block, dpt = 0, and their
@@ -180,16 +200,16 @@ def schur_solve(r, Jc, Jp, cam_idx, pt_idx, M: int, P: int, lam, gauge_mask,
 
         def S_matvec(x):                                               # x: [M, 6]
             u = ein("nij,nj->ni", Jc, x[ci])                           # [N, 2]
-            v = _segment_sum(ein("nij,ni->nj", Jp, u), pi, P)          # [P, 3]
+            v = _segment_sum(ein("nij,ni->nj", Jp, u), sp)             # [P, 3]
             y = ein("pij,pj->pi", Hpp_inv, v)
             wv = ein("nij,nj->ni", Jp, y[pi])
-            out = _segment_sum(ein("nij,ni->nj", Jc, u - wv), ci, M)
+            out = _segment_sum(ein("nij,ni->nj", Jc, u - wv), sc)
             return (out + lam * x) * gm
 
         # reduced RHS: bc - W Hpp^-1 bp
         yb = ein("pij,pj->pi", Hpp_inv, bp)
         wb = ein("nij,nj->ni", Jp, yb[pi])
-        rhs = (bc - _segment_sum(ein("nij,ni->nj", Jc, wb), ci, M)) * gm
+        rhs = (bc - _segment_sum(ein("nij,ni->nj", Jc, wb), sc)) * gm
 
         # PCG with a block-Jacobi (6x6 Hcc) preconditioner
         Minv = torch.linalg.inv(Hcc)
@@ -213,7 +233,7 @@ def schur_solve(r, Jc, Jp, cam_idx, pt_idx, M: int, P: int, lam, gauge_mask,
 
         # back-substitute points: dp = Hpp^-1 (bp - W^T dcam)
         u = ein("nij,nj->ni", Jc, x[ci])
-        wtd = _segment_sum(ein("nij,ni->nj", Jp, u), pi, P)
+        wtd = _segment_sum(ein("nij,ni->nj", Jp, u), sp)
         dpt = ein("pij,pj->pi", Hpp_inv, bp - wtd)
     return x, dpt
 
@@ -227,13 +247,14 @@ def run_ba(prob: BAProblem, iters: int = 10, n_cg: int = 30,
     gauge = torch.ones(M, dtype=dt, device=dev)
     if fix_first_cam:
         gauge[0] = 0.0
+    segments = (Segments.of(prob.cam_idx, M), Segments.of(prob.pt_idx, P))
     state = BAState(cams=prob.cams, points=prob.points,
                     lam=torch.tensor(lam0, dtype=torch.float32, device=dev),
                     cost=_cost(prob, prob.cams, prob.points))
     for _ in range(iters):
         r, Jc, Jp = _jacobians(prob, state.cams, state.points)
         dcam, dpt = schur_solve(r, Jc, Jp, prob.cam_idx, prob.pt_idx, M, P, state.lam,
-                                gauge, n_cg, pt_fixed=prob.pt_fixed)
+                                gauge, n_cg, pt_fixed=prob.pt_fixed, segments=segments)
         new_cams = state.cams + dcam
         new_pts = state.points + dpt
         new_cost = _cost(prob, new_cams, new_pts)
@@ -253,7 +274,7 @@ def refine_points(prob: BAProblem, iters: int = 3, huber_px: float = 3.0) -> tor
     per-point 3x3 damped normal equations, one segment sum per iteration.
     Returns the refined [P, 3] points (unobserved points keep theirs)."""
     Pn = prob.points.shape[0]
-    pi = prob.pt_idx.long()
+    sp = Segments.of(prob.pt_idx, Pn)
     points = prob.points
     with full_f32():
         for _ in range(iters):
@@ -263,8 +284,8 @@ def refine_points(prob: BAProblem, iters: int = 3, huber_px: float = 3.0) -> tor
             rn = torch.linalg.vector_norm(r, dim=1)
             rn = torch.clamp(rn, min=1e-9)
             w = prob.w * torch.clamp(torch.full_like(rn, huber_px) / rn, max=1.0)
-            bp = _segment_sum(-torch.einsum("nij,ni->nj", Jp, r * w[:, None]), pi, Pn)
-            Hpp = _segment_sum(w[:, None, None] * torch.einsum("nij,nik->njk", Jp, Jp), pi, Pn)
+            bp = _segment_sum(-torch.einsum("nij,ni->nj", Jp, r * w[:, None]), sp)
+            Hpp = _segment_sum(w[:, None, None] * torch.einsum("nij,nik->njk", Jp, Jp), sp)
             Hpp = Hpp + 1e-4 * torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
             dpt = torch.einsum("pij,pj->pi", _inv3(Hpp), bp)
             # guard: a point with degenerate observations must not fly away

@@ -39,7 +39,7 @@ from ..core.flags import parse_flags
 from ..frontend.extract import extract_features, extract_features_obo
 from ..frontend.match import guided_match_descriptors, match_descriptors
 from ..frontend.redetect import describe_at_keypoints
-from . import siftio
+from . import profile, siftio
 
 __all__ = [
     "SIFTGPU_FULL_SUPPORTED", "SIFTGPU_NOT_SUPPORTED",
@@ -94,8 +94,11 @@ class SiftTPU:
                 width //= 2
         return SiftConfig(height=height, width=width, **kw)
 
+    def _images(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr[None])).to(self.device)
+
     def _extract(self, arr: np.ndarray, cfg: SiftConfig):
-        images = torch.from_numpy(np.ascontiguousarray(arr[None])).to(self.device)
+        images = self._images(arr)
         if cfg.process_obo:  # -obo: one octave at a time
             return extract_features_obo(images, cfg)
         return extract_features(images, cfg)
@@ -151,16 +154,14 @@ class SiftTPU:
         cfg = self.config_for(*arr.shape)
         self._cfg = cfg
         verbose = int(self._overrides.get("_verbose", 0))
-        if verbose >= 2:
-            raise NotImplementedError(
-                "-v 2+ (per-stage timing table) needs pipeline/profile.py, whose stages "
-                "are the unfused compute_orientations path: not ported yet (ROADMAP.md, "
-                "queue 1, 'what waits')")
         t0 = time.perf_counter()
         self._feats = self._extract(arr, cfg)
         if verbose >= 1:  # -v 1: totals
             n = int(self._feats.count[0])  # waits for the device
             print(f"#features: {n}  time: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        if verbose >= 2:  # -v 2+: the per-stage table, each stage timed apart
+            times = profile.profile_extraction(self._images(arr), cfg, iters=1, match_pairs=False)
+            print(profile.format_stage_table(times, batch=1))
         out_path = self._overrides.get("_output_file")
         if out_path:
             # -o: save after every RunSIFT; later -il runs get a suffixed path
@@ -198,8 +199,7 @@ class SiftTPU:
         cfg = self.config_for(*arr.shape)
         self._cfg = cfg
         self._feats = describe_at_keypoints(
-            torch.from_numpy(np.ascontiguousarray(arr[None])).to(self.device),
-            torch.from_numpy(self._keypoint_list[None]).to(self.device), cfg)
+            self._images(arr), torch.from_numpy(self._keypoint_list[None]).to(self.device), cfg)
         return True
 
     def save_sift(self, path: str, binary: Optional[bool] = None) -> None:

@@ -124,7 +124,7 @@ def test_run_sift_and_files_match_reference(tmp_path):
 
 def test_output_flag_autosaves(tmp_path, capsys):
     """-o saves after every run (later runs to a suffixed path); -v 1 prints
-    the totals line; -v 2 needs the stage profiler, which is not ported."""
+    the totals line; -v 2 prints it and then the per-stage table."""
     out = tmp_path / "auto.sift"
     s = SiftTPU(["-tc", "128", "-o", str(out), "-v", "1"], device="cpu")
     assert s.run_sift(_image())
@@ -135,9 +135,17 @@ def test_output_flag_autosaves(tmp_path, capsys):
     np.testing.assert_array_equal(d2, desc)
     assert s.run_sift(_image())
     assert (tmp_path / "auto.sift.1").exists()
+    capsys.readouterr()
     s.parse_param(["-v", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.run_sift(_image())
+    assert s.run_sift(_image())
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("#features:")
+    assert out[1].split() == ["stage", "ms/iter", "ms/frame"]
+    rows = [ln.split() for ln in out[2:]]
+    assert [r[0] for r in rows] == ["pyramid", "detect", "gradients", "orient+desc", "assemble",
+                                    "TOTAL"]
+    ms = [float(r[1]) for r in rows]
+    assert all(v >= 0 for v in ms) and abs(sum(ms[:-1]) - ms[-1]) <= 0.01 * len(ms)
 
 
 @functools.lru_cache(maxsize=None)

@@ -115,3 +115,41 @@ def test_refine_points_matches_reference():
     ref = np.asarray(jba.refine_points(prob, iters=3))
     got = ba.refine_points(_port(prob), iters=3).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+
+
+def _index_add(x, idx, n):
+    return torch.zeros((n, *x.shape[1:]), dtype=x.dtype).index_add_(0, idx, x)
+
+
+@pytest.mark.parametrize("case", ["shuffled", "empty segments", "one segment", "3x3 rows",
+                                  "no rows"])
+def test_segment_sum_matches_index_add_bits(case):
+    """The fixed-order segment sum adds each segment's rows in their
+    original order from 0: on the CPU, `index_add_`'s bits exactly."""
+    rng = np.random.default_rng(11)
+    n, N, shape = {"shuffled": (40, 500, (3,)), "empty segments": (600, 300, (6,)),
+                   "one segment": (1, 700, (6, 6)), "3x3 rows": (90, 400, (3, 3)),
+                   "no rows": (5, 0, (3,))}[case]
+    idx = rng.integers(0, n, N)
+    if case == "empty segments":
+        idx = rng.choice(np.arange(0, n, 7), N)            # 6 of every 7 segments empty
+    x = torch.from_numpy(rng.normal(0, 1, (N, *shape)).astype(np.float32))
+    idx_t = torch.from_numpy(idx)
+    seg = ba.Segments.of(idx_t.to(torch.int32), n)
+    got = ba._segment_sum(x, seg)
+    ref = _index_add(x, idx_t, n)
+    assert got.shape == ref.shape
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(seg.offsets.diff(), torch.bincount(idx_t, minlength=n))
+
+
+def test_run_ba_repeats_bit_for_bit():
+    """Two runs on the same problem give the same bits (the card's property
+    that `index_add_`'s atomics lacked; on the CPU a check of the plan's
+    reuse across LM steps)."""
+    p = _port(_make_problem(seed=5, perturb=0.03, pix_noise=0.3)[0])
+    a, b = ba.run_ba(p, iters=4, n_cg=10), ba.run_ba(p, iters=4, n_cg=10)
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    r = ba.refine_points(p, iters=2)
+    assert torch.equal(r.view(torch.int32), ba.refine_points(p, iters=2).view(torch.int32))

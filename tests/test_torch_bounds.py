@@ -63,6 +63,18 @@ def test_orient_sample_outputs_and_window_cap():
         == 10 * 2 * 35 * 35 * 2
 
 
+def test_sample_gradients_counts_sampled_rows():
+    """A skipped keypoint costs only its plane index: 2048 keypoints of which
+    400 are sampled move what 400 do, plus 1648 x 4 B of indices."""
+    all_ = bounds.sample_gradients_work(12, 480, 640, 400, 256)
+    some = bounds.sample_gradients_work(12, 480, 640, 2048, 256, sampled=400)
+    assert some.bytes == all_.bytes + 1648 * 4 and some.ops == all_.ops
+    assert bounds.sample_gradients_work(12, 480, 640, 2048, 256, sampled=2048) == \
+        bounds.sample_gradients_work(12, 480, 640, 2048, 256)
+    none = bounds.sample_gradients_work(12, 480, 640, 2048, 256, sampled=0)
+    assert none.bytes == 2048 * 4 and none.ops == {"f32": 0}
+
+
 def test_bound_sums_calls():
     """Five octaves' bound is the bound of their summed bytes (~78.6 MB at
     the main path's shapes: 23.5 us at 3.35 TB/s)."""

@@ -9,8 +9,13 @@
     inputs of test_descriptors_pallas_path_matches_xla_path, fed the
     reference's gradient stack: within 1 uint8 step;
   - `describe_at_keypoints` against the reference's on the inputs of
-    tests/test_api.py::test_descriptor_only_mode_matches_full_pipeline: the
-    same mask and octaves, descriptors within 1 step."""
+    tests/test_api.py::test_descriptor_only_mode_matches_full_pipeline, with
+    keypoints at every octave's edges added: the same mask and octaves,
+    descriptors within 1 step;
+  - the sampler's skip rule (`plane < 0`) and shared `out` buffers, and
+    `describe_at_keypoints` (each keypoint sampled once, on its own octave)
+    bit for bit against the per-octave pattern it replaced: every octave
+    describing the whole list in 512-keypoint chunks, keeping its rows."""
 
 import functools
 
@@ -27,7 +32,7 @@ from siftgpu_tpu.frontend import pyramid as jpyramid
 from siftgpu_tpu.frontend.redetect import describe_at_keypoints as j_describe_at_keypoints
 from siftgpu_tpu_torch.convert import keypoints_from_reference, to_torch
 from siftgpu_tpu_torch.core.config import SiftConfig
-from siftgpu_tpu_torch.frontend import describe, orient, redetect
+from siftgpu_tpu_torch.frontend import describe, orient, pyramid, redetect
 from siftgpu_tpu_torch.ops import desc_sampler
 from siftgpu_tpu_torch.oracle import fixtures
 
@@ -144,7 +149,8 @@ def test_describe_at_keypoints_matches_reference(first_octave):
     jcfg = JConfig(height=80, width=96, max_keypoints=128, first_octave=first_octave)
     f = extract_features_jit(jnp.asarray(img[None]), jcfg)
     keys = keypoints_from_reference(f)
-    keys = np.concatenate([keys, [[40.0, 30.0, -2.0, 0.0], [40.0, 30.0, 500.0, 1.0]]])
+    keys = np.concatenate([keys, _edge_keypoints(80, 96, first_octave, jcfg.octaves),
+                           [[40.0, 30.0, -2.0, 0.0], [40.0, 30.0, 500.0, 1.0]]])
     keys = keys.astype(np.float32)                     # last two: no valid octave
     ref = j_describe_at_keypoints(jnp.asarray(img[None]), jnp.asarray(keys[None]), jcfg)
     cfg = SiftConfig(height=80, width=96, max_keypoints=128, first_octave=first_octave)
@@ -156,3 +162,101 @@ def test_describe_at_keypoints_matches_reference(first_octave):
     d = np.abs(got.desc.numpy().astype(int) - np.asarray(ref.desc).astype(int))
     assert d.max() <= 1
     assert int(got.mask.sum()) > 20
+
+
+def _edge_keypoints(h, w, first_octave, octaves, sigma0=1.6):
+    """Per octave, keypoints of that octave's scale at the image's corners,
+    edges and just outside them, their grids leaving the image."""
+    keys = []
+    for o in range(octaves):
+        sig = sigma0 * 2.0 ** (o + first_octave) * 1.3
+        for x, y in ((0, 0), (w - 1, h - 1), (w - 0.5, 0.25), (-0.75, h / 2), (w / 2, h - 0.01)):
+            keys.append([x, y, sig, 0.4 * o + 0.3])
+    return np.array(keys, np.float32)
+
+
+def test_sampler_skip_rule_and_shared_buffer():
+    """plane < 0 skips a keypoint: its rows keep the buffer's bytes; the
+    other rows equal the one-shot call's, and two calls with disjoint live
+    rows fill one buffer as one call would."""
+    gx, gy, plane, py, px = (to_torch(a) if not isinstance(a, np.ndarray) else torch.from_numpy(a)
+                             for a in _sampler_inputs(False))
+    one = desc_sampler.sample_gradients(gx, gy, plane, py, px)
+    skip = torch.arange(plane.shape[0]) % 3 == 1
+    fill = torch.full_like(py, float("nan")), torch.full_like(py, -7.0)
+    out = desc_sampler.sample_gradients(gx, gy, torch.where(skip, -1, plane), py, px,
+                                        out=tuple(f.clone() for f in fill))
+    for o, f, r in zip(out, fill, one):
+        assert torch.equal(o[skip].view(torch.int32), f[skip].view(torch.int32))
+        assert torch.equal(o[~skip].view(torch.int32), r[~skip].view(torch.int32))
+    desc_sampler.sample_gradients(gx, gy, torch.where(skip, plane, -1), py, px, out=out)
+    for o, r in zip(out, one):
+        assert torch.equal(o.view(torch.int32), r.view(torch.int32))
+    none = desc_sampler.sample_gradients(gx, gy, torch.full_like(plane, -1), py, px)
+    assert not any(bool(t.any()) for t in none)
+
+
+def _per_octave_pattern(images, keypoints, cfg):
+    """describe_at_keypoints as it was: every octave describes the whole
+    list, in 512-keypoint chunks, with its own scale, and keeps its rows."""
+    x, y, sig, th = (keypoints[..., i] for i in range(4))
+    S, G = cfg.dog_levels, cfg.descriptor_grid
+    B, K = x.shape
+    pyr = pyramid.build_pyramid(images, cfg)
+    ratio = redetect._log2(torch.clamp(sig, min=1e-6) / cfg.sigma0) - cfg.first_octave
+    oct_f = torch.floor(ratio)
+    octave = oct_f.clamp(0, cfg.octaves - 1).to(torch.int32)
+    valid = (sig > 0) & (oct_f >= 0) & (oct_f < cfg.octaves)
+    desc = torch.zeros((B, K, 128), dtype=torch.uint8)
+    shift = 0.5 if cfg.lowe_origin else 0.0
+    for o in range(cfg.octaves):
+        scale = cfg.octave_scale(o)
+        xo, yo = x / scale - shift, y / scale - shift
+        sl = torch.clamp(sig / scale, cfg.sigma0 * 0.5, cfg.sigma0 * 4.0)
+        lvl = torch.round(S * redetect._log2(torch.clamp(sl, min=1e-6) / cfg.sigma0))
+        lvl = lvl.clamp(1, S).to(torch.int32) - 1
+        g = orient.gradient_stack(pyr[o].gauss, cfg)
+        Hp, Wp = g.gx.shape[-2:]
+        raws = []
+        for i in range(0, K, 512):
+            c = slice(i, i + 512)
+            C = xo[:, c].shape[1]
+            py, px = describe._sample_coords(yo[:, c], xo[:, c], sl[:, c], th[:, c], cfg)
+            inb = (px >= 0) & (px <= g.w - 1) & (py >= 0) & (py <= g.h - 1)
+            plane = (torch.arange(B, dtype=torch.int32)[:, None] * S + lvl[:, c]).reshape(-1)
+            sx, sy = desc_sampler.sample_gradients(
+                g.gx.reshape(B * S, Hp, Wp), g.gy.reshape(B * S, Hp, Wp), plane,
+                py.reshape(B * C, G * G).contiguous(), px.reshape(B * C, G * G).contiguous())
+            sx = (sx.reshape(B, C, G, G) * inb).reshape(B, C, G * G)
+            sy = (sy.reshape(B, C, G, G) * inb).reshape(B, C, G * G)
+            raws.append(describe._bin_chunk(sx, sy, th[:, c], cfg))
+        d = describe.finalize_descriptors(torch.cat(raws, 1), cfg)
+        desc = torch.where(((octave == o) & valid)[..., None], d, desc)
+    return octave, valid, desc
+
+
+@pytest.mark.parametrize("first_octave", [0, -1])
+def test_describe_at_keypoints_bits_of_per_octave_pattern(first_octave):
+    """600 keypoints (two binning chunks) on two frames: the reference's
+    extraction's keypoints, every octave's edges, scales at the octave
+    boundaries, invalid sigmas (0, negative, too large)."""
+    imgs = np.stack([fixtures.random_texture(72, 88, seed=s) for s in (4, 5)])
+    cfg = SiftConfig(height=72, width=88, max_keypoints=256, first_octave=first_octave)
+    rng = np.random.default_rng(first_octave + 3)
+    keys = []
+    for _ in range(2):
+        k = np.concatenate([
+            _edge_keypoints(72, 88, first_octave, cfg.octaves),
+            np.stack([rng.uniform(-5, 93, 540), rng.uniform(-5, 77, 540),
+                      cfg.sigma0 * 2.0 ** rng.uniform(first_octave - 0.5, 4.5, 540),
+                      rng.uniform(0, 2 * np.pi, 540)], 1),
+            [[30, 30, cfg.sigma0 * 2.0 ** (o + first_octave), 1.0] for o in range(cfg.octaves)],
+            [[30, 30, s, 0.5] for s in (0.0, -3.0, 1e4)]])
+        keys.append(k[:600])
+    keys = torch.from_numpy(np.stack(keys).astype(np.float32))
+    images = torch.from_numpy(imgs)
+    got = redetect.describe_at_keypoints(images, keys, cfg)
+    octave, valid, desc = _per_octave_pattern(images, keys, cfg)
+    assert torch.equal(got.mask, valid) and torch.equal(got.octave[valid], octave[valid])
+    assert torch.equal(got.desc, desc)
+    assert 0 < int(valid.sum()) < valid.numel() and len(set(octave[valid].tolist())) == cfg.octaves
