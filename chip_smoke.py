@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths at 480x640 (K = 2048): the main path —
+Drives the port's four paths at 480x640 (K = 2048): the main path —
 `extract_features` on four frames related by known shifts, then
 `match_descriptors_batch` on the three consecutive pairs; the SiftGPU-style
 facade path — `SiftTPU.run_sift` on two frames,
@@ -12,7 +12,9 @@ facade path — `SiftTPU.run_sift` on two frames,
 `run_sift_with_keypoints`), `-obo` and `-fo -1`; and the two-view SfM path
 (BASELINE config 4) — `two_view_reconstruct` on a calibrated two-plane
 stereo pair: extract, match, 512-hypothesis RANSAC for E, pose, 10 LM x 30
-CG steps of BA.  It checks them:
+CG steps of BA; and the SLAM loop — `run_slam` over a 24-frame sequence
+(tracking, windowed BA, loop closure with online correction, checkpoint
+resume, relocalization after a blackout).  It checks them:
 
   1. device: a CUDA card is required (exit 1 otherwise); prints
      `nvidia-smi --query-gpu=name,power.limit` ;
@@ -60,6 +62,25 @@ CG steps of BA.  It checks them:
      > 80% of points in the two depth bands); the same RANSAC draws through
      the port on the CPU give a rotation within 1e-3 rad of the card's; a
      repeated card run on the same draws is bit-identical;
+  4d. SLAM path (run last, after phase 5): launch counters reset to 0,
+     `run_slam` on tests/test_loop_closure.py's out-and-back scene at
+     480x640 (f = 566.67 px, noise 0.05, T = 24, SlamConfig with
+     tests/test_slam.py's pixel thresholds x 10/3); kernels 1-4 and the
+     octave kernel must have launched; >= 2 keyframes, > 20 PnP inliers on
+     every frame from the bootstrap on, ATE within max(1.5 x the
+     reference's, 2% of the span) and a loop closed where the reference
+     (`slam_reference.py`, on the CPU: `SLAM_REF`) closes one; the run
+     repeated under torch.profiler and torch's sync debug mode (launches,
+     copies and CUDA syncs per frame; bit-identical or not); a checkpoint
+     after frame 12 resumed over all 24 frames must replay the first run
+     (keyframes, map mask, inlier counts, trajectory within 1e-4, loop
+     edges and their measurements within 1e-4); tests/test_relocalization.py's
+     blackout scene (frames 11-15 dark): no keyframe in the blackout, > 20
+     inliers after it, ATE outside it within max(1.5 x the clean run's, 2%
+     of the span); the path's kernels against their plain versions on a
+     batch-1 frame, the 2 live keyframes and the loop-closure archive, and
+     the archive match's time at C = 1-16 rows.  Each run prints frames/s
+     and host ms per stage (mean/max);
   5. times: extract and match per batch, the facade calls, the whole
      pyramid with the octave kernel and with the cuDNN chain, the two-view
      stages (CUDA events); each kernel against its plain version and, where
@@ -69,7 +90,8 @@ CG steps of BA.  It checks them:
      least time the card could take (`siftgpu_tpu_torch/bounds.py`).
 
 Any failed check raises.  The last three lines are the card's name and
-power limit, one JSON object with a record per kernel, and
+power limit, one JSON object with a record per kernel (`slam_launches`: its
+launches in phase 4d's first run), and
 `{"ok": true, "device": {...}}`.  Imports nothing of JAX.
 """
 
@@ -102,6 +124,17 @@ FACADE_KERNELS = ("match_best2_gated", "sample_gradients")
 RVEC = np.array([0.01, -0.03, 0.005])   # tests/test_twoview.py's pose of camera 1
 T_GT = np.array([-0.4, 0.05, 0.02])
 OCTAVE_TOL = 1e-5                       # tests/test_pyramid_kernel.py's fused-vs-chain bound
+SLAM_T = 24                             # tests/test_loop_closure.py's out-and-back scene
+SLAM_BLACKOUT = (11, 16)                # tests/test_relocalization.py's dark frames [11, 16)
+SLAM_RESUME_AT = 13                     # the checkpoint of phase 4d: before the revisit
+# The reference (`siftgpu_tpu`, JAX) on phase 4d's loop scene at 480x640, K =
+# 2048, on the CPU (`python3 slam_reference.py`): phase 4d's gates come from it.
+SLAM_REF = {
+    "keyframes": [0, 3, 7, 10, 16, 19, 22], "loop_edges": 1,
+    "ate": 0.10579653356103905, "span": 0.9465753436088562,
+    "num_tracked": [1673, 7, 10, 2, 0, 0, 0, 10, 96, 91, 93, 213, 227, 211, 218, 238, 205, 278,
+                    294, 263, 316, 346, 287, 326],
+}
 
 
 def log(msg: str) -> None:
@@ -125,6 +158,68 @@ def make_frames(h=H, w=W, b=B):
         for i in range(1, b)
     ]
     return np.stack(frames).astype(np.float32)
+
+
+def slam_scale(w: int) -> float:
+    """The SLAM tests' pixel sizes (144x192) scaled to a width of w."""
+    return w / 192.0
+
+
+def slam_config(slam_mod, w=W):
+    """tests/test_slam.py's thresholds scaled to the width (26.67 and 33.33
+    px at 640); every other field at its default."""
+    return slam_mod.SlamConfig(kf_min_inliers=60, kf_flow_px=8.0 * slam_scale(w),
+                               init_flow_px=10.0 * slam_scale(w))
+
+
+def slam_loop_scene(fixtures, h=H, w=W, T=SLAM_T, noise=0.05):
+    """tests/test_loop_closure.py:25-56's out-and-back trajectory at h x w
+    (intrinsics 170 px x w / 192: 566.67 at 640): the camera translates out
+    for T/2 frames and returns to the start, with Gaussian noise 0.05 from
+    default_rng(11).  `fixtures` is either package's oracle module.
+    Returns (frames [T, h, w] f32, ground-truth twists [T, 6], intr)."""
+    f = 170.0 * slam_scale(w)
+    intr = (f, f, w / 2.0, h / 2.0)
+    half = T // 2
+    ks = np.concatenate([np.arange(half), np.arange(half - 2, -2, -1)])[:T]
+    frames, gt = fixtures.two_plane_sequence_poses(
+        np.outer(ks, [0.002, -0.004, 0.001]), np.outer(ks, [-0.085, 0.012, 0.006]), h, w, intr,
+        d_near=5.0, d_far=10.0, seed=4)
+    rng = np.random.default_rng(11)
+    frames = np.clip(frames + rng.normal(0.0, noise, frames.shape).astype(np.float32), 0, 1)
+    return frames.astype(np.float32), gt, intr
+
+
+def slam_blackout_scene(fixtures, h=H, w=W, T=SLAM_T):
+    """tests/test_relocalization.py:27-44's piecewise motion with a velocity
+    turn at the blackout, at h x w.  Returns (clean frames, the same with
+    frames SLAM_BLACKOUT set to 0, ground truth, intr)."""
+    f = 170.0 * slam_scale(w)
+    intr = (f, f, w / 2.0, h / 2.0)
+    tvecs, rvecs = np.zeros((T, 3)), np.zeros((T, 3))
+    for k in range(1, T):
+        before = k <= SLAM_BLACKOUT[0]
+        tvecs[k] = tvecs[k - 1] + ([-0.08, 0.012, 0.006] if before else [0.05, -0.06, -0.004])
+        rvecs[k] = rvecs[k - 1] + ([0.002, -0.004, 0.001] if before else [-0.003, 0.005, -0.001])
+    frames, gt = fixtures.two_plane_sequence_poses(rvecs, tvecs, h, w, intr, d_near=5.0,
+                                                   d_far=10.0, seed=4)
+    dark = frames.copy()
+    dark[SLAM_BLACKOUT[0]:SLAM_BLACKOUT[1]] = 0.0
+    return frames, dark, gt, intr
+
+
+def ate(align, traj, gt, rows=None) -> float:
+    """Sim(3)-aligned ATE of the camera centers (optionally of some rows)."""
+    est, ref = align.camera_centers(traj), align.camera_centers(gt)
+    if rows is not None:
+        est, ref = est[rows], ref[rows]
+    return align.ate_rmse(est, ref, with_scale=True)[0]
+
+
+def loop_span(align, gt) -> float:
+    """tests/test_loop_closure.py's span: the farthest center from the start."""
+    c = align.camera_centers(gt)
+    return float(np.linalg.norm(c - c[0], axis=1).max())
 
 
 def inlier_rate(feats, res, p: int) -> float:
@@ -213,7 +308,7 @@ class Parity:
         if timed:
             self.calls.setdefault(name, []).append(Call(kern, plain, lib, work))
 
-    def detect(self, dog):
+    def detect(self, dog, timed=True):
         import torch
 
         from siftgpu_tpu_torch import bounds
@@ -235,7 +330,7 @@ class Parity:
         B, L, Hd, Wd = dog.shape
         self.note("detect_scores", err, lambda: ds.detect_scores(dog, self.cfg),
                   lambda: ds.detect_scores_plain(dog, self.cfg),
-                  bounds.detect_scores_work(B, L - 2, Hd, Wd))
+                  bounds.detect_scores_work(B, L - 2, Hd, Wd), timed=timed)
 
     def grad(self, gauss, pad=None, label="", timed=True):
         """grad_stencil on gauss [B, S+3, H, W], padded to the orientation
@@ -261,7 +356,7 @@ class Parity:
                   lambda: gs.grad_stencil_plain(gauss, S, mh, mw),
                   bounds.grad_stencil_work(B, S, Hg, Wg, max(Hg, mh), max(Wg, mw)), lib, timed)
 
-    def orient(self, grads, kp):
+    def orient(self, grads, kp, timed=True):
         import torch
 
         Bk, Kk = kp.y.shape
@@ -274,7 +369,7 @@ class Parity:
             kp.sigma.reshape(-1).contiguous(), self.cfg, kp.mask.reshape(-1).contiguous(),
             grads.h, grads.w,
         )
-        self.orient_args(args, f"{Bk}x{Kk} keypoints on {Hp}x{Wp}")
+        self.orient_args(args, f"{Bk}x{Kk} keypoints on {Hp}x{Wp}", timed)
 
     def orient_args(self, args, label, timed=True, exact=False):
         """orient_sample against its plain version on `args` within the
@@ -1043,6 +1138,239 @@ def twoview_phase(dev, sync, h=H, w=W, k=K):
     return timed
 
 
+def sync_warnings(fn) -> int:
+    """Synchronising CUDA calls in one call of fn (torch's sync debug mode)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def stage_summary(timings) -> str:
+    """'stage mean/max ms (count)' for each stage of a run's timings."""
+    return ", ".join(f"{name} {np.mean(v):.2f}/{np.max(v):.2f} ms (x{len(v)})"
+                     for name, v in timings.items())
+
+
+def tracked_from(num_tracked, boot: int, floor: int = 20) -> int:
+    """The first frame at or after `boot` from which every frame tracks more
+    than `floor` PnP inliers (len(num_tracked) if none)."""
+    t = len(num_tracked)
+    while t > boot and num_tracked[t - 1] > floor:
+        t -= 1
+    return t
+
+
+def slam_phase(dev, sync, par, h=H, w=W, k=K):
+    """Phase 4d: the SLAM loop (`run_slam`) on the out-and-back loop scene
+    (tracking, windowed BA, loop closure with online correction), a
+    checkpoint before the revisit resumed over the whole sequence, and the
+    blackout scene (LOST state, relocalization), with launch counters reset
+    before the first run.  Returns the hand kernels' launches in that run."""
+    import os
+    import tempfile
+
+    import torch
+
+    from siftgpu_tpu_torch import MatchConfig, SiftConfig
+    from siftgpu_tpu_torch.frontend import detect, extract, orient, pyramid
+    from siftgpu_tpu_torch.geometry import align
+    from siftgpu_tpu_torch.ops import _build
+    from siftgpu_tpu_torch.oracle import fixtures
+    from siftgpu_tpu_torch.pipeline import checkpoint, slam
+
+    log("phase 4d: SLAM path (tracking, windowed BA, loop closure, relocalization, resume)")
+    cuda = dev.type == "cuda"
+    if cuda:
+        log(f"  {card_line()}")
+    cfg = SiftConfig(height=h, width=w, max_keypoints=k)
+    mcfg = MatchConfig(max_sift=k, max_match=k)
+    scfg = slam_config(slam, w)
+    frames, gt, intr = slam_loop_scene(fixtures, h, w)
+    T = len(frames)
+    ref = SLAM_REF if (h, w, k) == (H, W, K) else None   # the reference ran at 480x640
+
+    def run(fr, intr_=intr, **kw):
+        return slam.run_slam(fr, intr_, cfg, mcfg, scfg, device=dev, **kw)
+
+    def report(label, res, sec, timings, first=0):
+        n = len(res.num_tracked) - first
+        log(f"  {label}: {n} frames in {sec:.3f} s, {n / sec:.2f} frames/s; "
+            f"keyframes {res.keyframe_indices}, "
+            f"loop edges {[(e[0], e[1]) for e in res.loop_edges]}")
+        log(f"    stages (host ms, mean/max): {stage_summary(timings)}")
+
+    # ---- run 1: the whole loop scene, counted and timed ----
+    for kern in _build.KERNELS.values():
+        kern.launches = 0
+    timings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        sync()
+        t0 = time.perf_counter()
+        res = run(frames, timings=timings, checkpoint_path=os.path.join(tmp, "slam.npz"))
+        sync()
+        sec = time.perf_counter() - t0
+    launches = {name: kern.launches for name, kern in _build.KERNELS.items()}
+    report(f"loop scene {h}x{w}, K = {k}", res, sec, timings)
+    log(f"    PnP inliers per frame {res.num_tracked}")
+    log(f"    hand-kernel launches {launches}: {sum(launches.values()) / T:.2f} per frame")
+    if cuda:
+        missing = [n for n in MAIN_KERNELS if launches[n] == 0]
+        if missing:
+            raise AssertionError(f"SLAM path did not launch {missing}")
+    ate1 = ate(align, res.trajectory, gt)
+    span = loop_span(align, gt)
+    boot = res.keyframe_indices[1] if len(res.keyframe_indices) > 1 else T
+    bound = None if ref is None else max(1.5 * ref["ate"], 0.02 * ref["span"])
+    log(f"    ATE {ate1:.5f} (span {span:.4f}; the reference on the CPU "
+        f"{ref['ate'] if ref else 'not run at this size'}, bound {bound}); inlier gate from "
+        f"the bootstrap, frame {boot} (the reference's own bootstrap at frame "
+        f"{ref['keyframes'][1] if ref else '-'} tracks > 20 only from frame "
+        f"{tracked_from(ref['num_tracked'], ref['keyframes'][1]) if ref else '-'})")
+    if len(res.keyframe_indices) < 2:
+        raise AssertionError("SLAM: fewer than 2 keyframes")
+    low = [t for t in range(boot, T) if res.num_tracked[t] <= 20]
+    if low:
+        raise AssertionError(f"SLAM: PnP inliers <= 20 at frames {low}")
+    if bound is not None and not ate1 <= bound:
+        raise AssertionError(f"SLAM: ATE {ate1} above the reference's bound {bound}")
+    if ref is not None and ref["loop_edges"] and not res.loop_edges:
+        raise AssertionError("SLAM: the reference closes a loop, the card run none")
+
+    # ---- run 2: the same run, repeated, its syncs and device work counted ----
+    if cuda:
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        repeat = []
+        with torch.profiler.profile(activities=acts) as prof:
+            n_sync = sync_warnings(lambda: repeat.append(run(frames)))
+            sync()
+        again = repeat[0]
+        ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        copies = sum(e.count for e in ev if e.key.startswith(("Memcpy", "Memset")))
+        kernels = sum(e.count for e in ev) - copies
+        dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
+        same = (again.keyframe_indices == res.keyframe_indices
+                and np.array_equal(again.trajectory, res.trajectory)
+                and np.array_equal(again.map_points, res.map_points))
+        log(f"  repeated run: {'bit-identical' if same else 'differs'} (trajectory max diff "
+            f"{float(np.abs(again.trajectory - res.trajectory).max()):.3g}); "
+            f"{kernels / T:.1f} kernel launches and {copies / T:.1f} copies per frame, "
+            f"{n_sync / T:.2f} CUDA syncs per frame ({n_sync} in {T} frames, torch sync "
+            f"debug mode), {dev_ms:.3f} ms of device time (torch.profiler)")
+
+    # ---- run 3: checkpoint before the revisit, resume over the whole sequence ----
+    tc = SLAM_RESUME_AT
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt.npz")
+        part = run(frames[:tc])
+        checkpoint.save_slam_state(path, part, next_frame=tc, kf_window=scfg.kf_window)
+        rt = {}
+        t0 = time.perf_counter()
+        resumed = run(frames, resume=checkpoint.load_slam_state(path), timings=rt)
+        sync()
+        sec_r = time.perf_counter() - t0
+    report(f"resumed at frame {tc}", resumed, sec_r, rt, first=tc)
+    dtraj = float(np.abs(resumed.trajectory - res.trajectory).max())
+    e_full = [(e[0], e[1]) for e in res.loop_edges]
+    e_res = [(e[0], e[1]) for e in resumed.loop_edges]
+    drel = max([float(np.abs(np.asarray(a[2]) - np.asarray(b[2])).max())
+                for a, b in zip(resumed.loop_edges, res.loop_edges)] or [0.0])
+    log(f"    against run 1: trajectory max diff {dtraj:.3g}, loop edges {e_res} vs {e_full} "
+        f"(rel max diff {drel:.3g})")
+    if not (resumed.keyframe_indices == res.keyframe_indices
+            and np.array_equal(resumed.map_mask, res.map_mask)
+            and resumed.num_tracked == res.num_tracked and dtraj <= 1e-4
+            and e_res == e_full and drel <= 1e-4):
+        raise AssertionError("SLAM: the resumed run does not replay run 1")
+    # the end-of-run Sim(3) refinement (stored odometry + every loop edge)
+    # and the points-only refit, on the resumed run's state
+    t0 = time.perf_counter()
+    changed = slam.apply_pose_graph_sim3(
+        resumed.keyframes, resumed.trajectory, resumed.map_points, resumed.map_mask,
+        resumed.map_anchor, resumed.loop_edges, odo_edges=resumed.odo_edges, device=dev)
+    slam.refit_map_points(resumed.keyframes, resumed.map_points, resumed.map_mask, intr,
+                          device=dev)
+    sync()
+    ms_pg = (time.perf_counter() - t0) * 1e3
+    ate_pg = ate(align, resumed.trajectory, gt)
+    log(f"  end-of-run pose graph ({len(resumed.keyframes)} keyframes, "
+        f"{len(resumed.loop_edges)} loop edges) + refit: {ms_pg:.1f} ms, applied {changed}; "
+        f"ATE {ate1:.5f} -> {ate_pg:.5f}")
+    if not (np.isfinite(resumed.trajectory).all() and np.isfinite(resumed.map_points).all()):
+        raise AssertionError("SLAM: the pose-graph refinement left a non-finite state")
+
+    # ---- runs 4-5: the blackout scene, clean and dark ----
+    clean, dark, gt_b, intr_b = slam_blackout_scene(fixtures, h, w)
+    rc = run(clean, intr_b)
+    tb = {}
+    t0 = time.perf_counter()
+    rd = run(dark, intr_b, timings=tb)
+    sync()
+    report(f"blackout scene, frames {SLAM_BLACKOUT[0]}-{SLAM_BLACKOUT[1] - 1} dark", rd,
+           time.perf_counter() - t0, tb)
+    rows = np.r_[0:SLAM_BLACKOUT[0], SLAM_BLACKOUT[1]:T]
+    a_clean, a_dark = ate(align, rc.trajectory, gt_b, rows), ate(align, rd.trajectory, gt_b, rows)
+    c = align.camera_centers(gt_b)
+    span_b = float(np.linalg.norm(c[-1] - c[0]))
+    post = rd.num_tracked[SLAM_BLACKOUT[1]:]
+    log(f"    PnP inliers {rd.num_tracked}; ATE outside the blackout {a_dark:.5f}, clean run "
+        f"{a_clean:.5f} (keyframes {rc.keyframe_indices}), span {span_b:.4f}")
+    if any(SLAM_BLACKOUT[0] <= i < SLAM_BLACKOUT[1] for i in rd.keyframe_indices):
+        raise AssertionError(f"SLAM: a keyframe inside the blackout {rd.keyframe_indices}")
+    if not max(post) > 20:
+        raise AssertionError(f"SLAM: no recovery after the blackout {post}")
+    if not a_dark < max(1.5 * a_clean, 0.02 * span_b):
+        raise AssertionError(f"SLAM: blackout ATE {a_dark} vs clean {a_clean}")
+
+    # ---- the path's kernels against their plain versions at its shapes ----
+    f0 = torch.from_numpy(frames[:1]).to(dev)
+    bases = []
+    with recording(pyramid, "blur_octave_fused", bases):
+        pyr = pyramid.build_pyramid(f0, cfg)
+    for base, taps in bases:
+        par.octave(base, taps, "SLAM frame", timed=False)
+    for oc in pyr:
+        par.detect(oc.dog, timed=False)
+        par.grad(oc.gauss, label="SLAM frame", timed=False)
+    kps = extract.prefilter_candidates(detect.detect_pyramid(pyr, cfg), cfg)
+    for oc, kp in zip(pyr, kps):
+        par.orient(orient.gradient_stack(oc.gauss, cfg), kp, timed=False)
+    kfs = res.keyframes
+    cur = kfs[-1]
+    arch = [kf for kf in kfs if kf.kp.get("desc_host") is not None]
+    live = torch.stack([kfs[-2].kp["desc"], cur.kp["desc"]]).contiguous()
+    lmask = torch.stack([torch.from_numpy(np.asarray(kf.kp["mask"])) for kf in kfs[-2:]]).to(dev)
+    par.match(live, cur.kp["desc"].expand(2, -1, -1).contiguous(), lmask,
+              lmask[1:].expand(2, -1).contiguous(), "SLAM live keyframes", timed=False)
+    # the archive match (loop detection, relocalization): C rows, and its
+    # cost as the archive grows (each row is finalised in a Python loop)
+    if arch:
+        ad = torch.from_numpy(np.stack([a.kp["desc_host"] for a in arch])).to(dev)
+        am = torch.from_numpy(np.stack([np.asarray(a.kp["mask"]) for a in arch])).to(dev)
+        cm = lmask[1]
+        par.match(ad.contiguous(), cur.kp["desc"].expand(len(arch), -1, -1).contiguous(),
+                  am.contiguous(), cm.expand(len(arch), -1).contiguous(),
+                  f"SLAM archive of {len(arch)}", timed=False)
+        if cuda:
+            costs = []
+            for C in (1, 2, 4, 8, 16):
+                idx = torch.arange(C, device=dev) % len(arch)
+                d_c, m_c = ad[idx].contiguous(), am[idx].contiguous()
+                costs.append((C, time_ms(lambda: slam._loop_match(d_c, m_c, cur.kp["desc"], cm,
+                                                                  mcfg), sync, 5)))
+            log("  archive match (CUDA events, ms per call): "
+                + ", ".join(f"C = {C}: {ms:.3f}" for C, ms in costs))
+    return launches
+
+
 def run(device: str, h=H, w=W, b=B, k=K):
     """The whole smoke run on `device` (a CUDA device on the chip; the CPU
     only to rehearse the control flow, where both routes are plain)."""
@@ -1139,6 +1467,7 @@ def run(device: str, h=H, w=W, b=B, k=K):
     # ---- 4c. the two-view path, counted ----
     twoview_calls = twoview_phase(dev, sync, h, w, k)
 
+
     # ---- 5. times ----
     records = []
     timing = dev.type == "cuda"   # CUDA events; a CPU rehearsal skips the times
@@ -1190,6 +1519,12 @@ def run(device: str, h=H, w=W, b=B, k=K):
                 f"{rec['library_ms'] if lb else 'none'}, bound {bound_ms:.4f} ms ({bound_by}) "
                 f"(sum over {len(calls)} calls of its path)")
         records.append(rec)
+
+    # ---- 4d. the SLAM path, counted; last, since its profiled run leaves
+    # later torch.profiler sessions without the hand kernels' device time ----
+    slam_launches = slam_phase(dev, sync, par, h, w, k)
+    for rec in records:
+        rec.update(slam_launches=slam_launches[rec["name"]], max_abs_err=par.err[rec["name"]])
     return records
 
 

@@ -43,14 +43,13 @@ import importlib.util
 import json
 import sys
 import time
-import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from chip_smoke import (H, K, RVEC, SHIFT, T_GT, W, card_line, device_ms, make_frames, recording,
-                        time_ms, torch_equal_bits)
+                        sync_warnings, time_ms, torch_equal_bits)
 from siftgpu_tpu_torch import MatchConfig, SiftConfig, bounds, extract_features
 from siftgpu_tpu_torch.frontend import describe, pyramid, redetect
 from siftgpu_tpu_torch.frontend import match as fmatch
@@ -277,18 +276,6 @@ def bundle_adjustment(root: Path, sync):
     return {"host_ms": ms, "host_ms_median": med, "device_ms": [d for d, _ in dev],
             "launches": [n for _, n in dev], "cost": [float(a.cost), float(b.cost)],
             "sync_warnings": syncs}
-
-
-def sync_warnings(fn) -> int:
-    """Synchronising CUDA calls in one call of fn (torch's sync debug mode)."""
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def main() -> int:

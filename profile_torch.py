@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch/CUDA port's main and two-view paths goes,
-on one GPU.
+"""Where the time of the PyTorch/CUDA port's main, two-view and SLAM paths
+goes, on one GPU.
 
     python3 profile_torch.py
 
 Same workloads as chip_smoke.py (4 x 480x640 frames, K = 2048, 3 pairs; the
-two-plane stereo pair of its phase 4c).  Prints:
+two-plane stereo pair of its phase 4c; the loop scene of its phase 4d).
+Prints:
   1. host-clock stage times (each stage ends in torch.cuda.synchronize());
   2. a torch.profiler table of device time by kernel over 5 extract + match
      iterations, and the device busy share of that window; the same for
      `two_view_reconstruct` and for its bundle adjustment alone;
+  2b. the SLAM loop (`run_slam` on the 24-frame loop scene): host seconds
+     and frames/s, the device busy share, and kernel launches by stage
+     (each launch counted in the innermost stage around it), per tracked
+     frame and per keyframe;
   3. the FMA probes: the detect_scores and sample_gradients kernels built
      WITHOUT -fmad=false, against their plain versions — how many values
      change when nvcc contracts multiply-adds;
@@ -118,6 +123,94 @@ def twoview_profile():
     profile_window("run_ba (10 LM x 30 CG)", lambda: ba.run_ba(*problems[0]), 3, top=10)
 
 
+SLAM_STAGES = {
+    # module attribute wrapped -> stage name (launches go to the innermost)
+    ("slam", "_track_step"): "track step (extract + live match)",
+    ("slam", "extract_features"): "extract",
+    ("slam", "_loop_match"): "archive match",
+    ("pnp", "pnp_gn"): "PnP",
+    ("ba", "run_ba"): "windowed BA",
+    ("P", "triangulate"): "triangulate",
+    ("slam", "apply_pose_graph_sim3"): "pose graph + map repair",
+    ("slam", "refit_map_points"): "refit",
+}
+
+
+def slam_profile():
+    """`run_slam` on chip_smoke.py's phase-4d loop scene: host time, busy
+    share, and kernel launches per stage, per tracked frame and per
+    keyframe."""
+    from contextlib import ExitStack
+    from functools import wraps
+
+    from chip_smoke import slam_config, slam_loop_scene
+    from siftgpu_tpu_torch.oracle import fixtures
+    from siftgpu_tpu_torch.pipeline import slam
+
+    frames, _, intr = slam_loop_scene(fixtures)
+    cfg = SiftConfig(height=H, width=W, max_keypoints=K)
+    mcfg = MatchConfig(max_sift=K, max_match=K)
+    scfg = slam_config(slam)
+    run = lambda: slam.run_slam(frames, intr, cfg, mcfg, scfg, device="cuda")
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    T, n_kf = len(frames), len(res.keyframe_indices)
+
+    def wrapped(fn, name):
+        @wraps(fn)
+        def inner(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return inner
+
+    mods = {"slam": slam, "pnp": slam.pnp, "ba": slam.ba, "P": slam.P}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with ExitStack() as stack:
+        for (m, attr), name in SLAM_STAGES.items():
+            orig = getattr(mods[m], attr)
+            setattr(mods[m], attr, wrapped(orig, name))
+            stack.callback(setattr, mods[m], attr, orig)
+        with torch.profiler.profile(activities=acts) as prof:
+            run()
+            torch.cuda.synchronize()
+    events = prof.events()
+    names = set(SLAM_STAGES.values())
+    # the stage ranges also appear on the device timeline (user annotations
+    # spanning each range): neither their device time nor their count is work
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in names) / 1e3
+    ranges = [e for e in events
+              if e.name in names and e.device_type == torch.autograd.DeviceType.CPU]
+    launches = [e for e in events if "aunch" in e.name and "Kernel" in e.name]
+    per = {name: [0, 0] for name in names}      # stage -> [calls, launches]
+    for r in ranges:
+        per[r.name][0] += 1
+    other = 0
+    for ev in launches:
+        t = ev.time_range.start
+        inside = [r for r in ranges if r.thread == ev.thread
+                  and r.time_range.start <= t <= r.time_range.end]
+        if inside:
+            per[min(inside, key=lambda r: r.time_range.elapsed_us()).name][1] += 1
+        else:
+            other += 1
+    frame_side = sum(per[n][1] for n in ("track step (extract + live match)", "extract", "PnP"))
+    print(f"SLAM loop scene ({T} frames, {n_kf} keyframes, {len(res.loop_edges)} loop edges): "
+          f"{wall:.3f} s, {T / wall:.2f} frames/s (host clock, no profiler); device time "
+          f"{dev_ms:.3f} ms (torch.profiler), busy share {100 * dev_ms / 1e3 / wall:.1f}%; "
+          f"{len(launches)} kernel launches, {len(launches) / T:.1f} per frame")
+    for name, (calls, n) in sorted(per.items(), key=lambda kv: -kv[1][1]):
+        print(f"  {name:36s} {calls:4d} calls {n:7d} launches ({n / max(calls, 1):.1f} per call)")
+    print(f"  {'outside the stages':36s}      {other:7d} launches")
+    print(f"  per tracked frame (track step + extract + PnP; the loop's PnPs included): "
+          f"{frame_side / T:.1f} launches; per keyframe (the rest): "
+          f"{(len(launches) - frame_side) / n_kf:.1f} launches")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA device", file=sys.stderr)
@@ -141,6 +234,7 @@ def main() -> int:
 
     profile_window("extract + match", step, 5)
     twoview_profile()
+    slam_profile()
 
     # ---- FMA probe: detect_scores built with nvcc's default contraction ----
     probe = _build.Kernel("detect_scores_fmad", "detect_scores.cu", detect_scores.KERNEL.entry)

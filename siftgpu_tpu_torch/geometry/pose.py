@@ -117,7 +117,9 @@ def log_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(R, t) -> [..., 6] twist (inverse of exp_se3)."""
     w = log_so3(R)
     with full_f32():
-        v = (torch.linalg.inv(_so3_left_jacobian(w)) @ t[..., None])[..., 0]
+        # inv_ex: the left Jacobian is invertible below 2 pi, and unlike
+        # `inv` it does not check the factorisation on the host (no sync)
+        v = (torch.linalg.inv_ex(_so3_left_jacobian(w))[0] @ t[..., None])[..., 0]
     return torch.cat([w, v], dim=-1)
 
 

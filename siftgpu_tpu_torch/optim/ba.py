@@ -211,8 +211,9 @@ def schur_solve(r, Jc, Jp, cam_idx, pt_idx, M: int, P: int, lam, gauge_mask,
         wb = ein("nij,nj->ni", Jp, yb[pi])
         rhs = (bc - _segment_sum(ein("nij,ni->nj", Jc, wb), sc)) * gm
 
-        # PCG with a block-Jacobi (6x6 Hcc) preconditioner
-        Minv = torch.linalg.inv(Hcc)
+        # PCG with a block-Jacobi (6x6 Hcc) preconditioner; inv_ex does not
+        # check the (damped, SPD) blocks on the host, so nothing synchronises
+        Minv = torch.linalg.inv_ex(Hcc)[0]
 
         def precond(v):
             return ein("mij,mj->mi", Minv, v) * gm

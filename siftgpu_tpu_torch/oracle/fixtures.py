@@ -3,9 +3,10 @@
 The copies are verbatim, so a seed gives the same image in both packages.
 `orient_windows` and `orient_keypoints` are the port's own: gradient
 planes and keypoints for the orientation kernel's edge cases.
-`two_plane_stereo` takes its rotation from the port's `exp_so3` in float32,
-as the reference's does from JAX's with 64-bit floats off; the
-`two_plane_sequence*` fixtures wait for the port of the SLAM loop.
+`two_plane_stereo` and the `two_plane_sequence*` fixtures take their
+rotations from the port's `exp_so3` in float32, and the sequences their
+ground-truth twists from its `log_se3` in float32, as the reference's do
+from JAX's with 64-bit floats off.
 """
 
 from __future__ import annotations
@@ -13,11 +14,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..geometry.pose import exp_so3
+from ..geometry.pose import exp_so3, log_se3
 
 __all__ = [
     "gaussian_blob_image", "checkerboard", "random_texture", "warp_affine",
-    "warp_homography", "two_plane_stereo", "orient_windows", "orient_keypoints",
+    "warp_homography", "two_plane_stereo", "two_plane_sequence", "two_plane_sequence_poses",
+    "orient_windows", "orient_keypoints",
 ]
 
 
@@ -114,6 +116,49 @@ def two_plane_stereo(h, w, intr, rvec, t, d_near=5.0, d_far=10.0, seed=0):
     img1 = np.where(w_near > 0, w_near, w_far).astype(np.float32)
     meta = dict(K=K, R=R, t=np.asarray(t, np.float64), d_near=d_near, d_far=d_far)
     return img0, img1, meta
+
+
+def two_plane_sequence(n_frames, h, w, intr, rvec_step, t_step,
+                       d_near=5.0, d_far=10.0, seed=0):
+    """Synthetic calibrated monocular sequence over the two-plane scene.
+
+    Frame k is rendered from the canonical (frame-0) textures via per-plane
+    homographies for the pose (k*rvec_step, k*t_step) — exact ground truth
+    for the SLAM loop's ATE metric (SURVEY §4.4).
+    Returns (frames [T, h, w], poses_gt [T, 6] world->cam twists).
+    """
+    rvs = np.outer(np.arange(n_frames), np.asarray(rvec_step, np.float64))
+    tvs = np.outer(np.arange(n_frames), np.asarray(t_step, np.float64))
+    return two_plane_sequence_poses(rvs, tvs, h, w, intr,
+                                    d_near=d_near, d_far=d_far, seed=seed)
+
+
+def two_plane_sequence_poses(rvecs, tvecs, h, w, intr,
+                             d_near=5.0, d_far=10.0, seed=0):
+    """`two_plane_sequence` with EXPLICIT per-frame poses (rvecs/tvecs
+    [T, 3]) — e.g. a loop trajectory that returns to its start, the
+    loop-closure test scene.  Returns (frames [T, h, w], poses_gt [T, 6])."""
+    fx, fy, cx, cy = intr
+    K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+    Kinv = np.linalg.inv(K)
+    n = np.array([0.0, 0.0, 1.0])
+    tex_far = random_texture(h, w, seed=seed, smooth=2)
+    tex_near = random_texture(h, w, seed=seed + 1, smooth=2)
+    yy = np.mgrid[0:h, 0:w][0]
+    top = yy < h // 2
+    far0 = np.where(top, tex_far, 0.0).astype(np.float32)
+    near0 = np.where(~top, tex_near, 0.0).astype(np.float32)
+
+    frames, poses = [], []
+    for rv, tv in zip(np.asarray(rvecs, np.float64), np.asarray(tvecs, np.float64)):
+        R = exp_so3(torch.from_numpy(rv.astype(np.float32)))
+        Rn = R.numpy()
+        w_far, _ = warp_homography(far0, K @ (Rn + np.outer(tv, n) / d_far) @ Kinv)
+        w_near, _ = warp_homography(near0, K @ (Rn + np.outer(tv, n) / d_near) @ Kinv)
+        frames.append(np.where(w_near > 0, w_near, w_far).astype(np.float32))
+        # world->cam twist for (R, tv): translation needs V^-1, hence log_se3
+        poses.append(log_se3(R, torch.from_numpy(tv.astype(np.float32))).numpy())
+    return np.stack(frames), np.stack(poses).astype(np.float32)
 
 
 def warp_affine(img, A, t, out_shape=None):

@@ -29,12 +29,12 @@ def test_imports_without_jax_or_reference():
         from siftgpu_tpu_torch.core import config, flags, image, precision, scalespace
         from siftgpu_tpu_torch.frontend import (describe, detect, extract, fused, match, orient,
                                                 pyramid, redetect)
-        from siftgpu_tpu_torch.geometry import epipolar, pose
+        from siftgpu_tpu_torch.geometry import align, epipolar, pose
         from siftgpu_tpu_torch.ops import (_build, desc_sampler, detect_scores, grad_stencil,
                                            kp_engine, match_kernel, pyramid_kernel)
-        from siftgpu_tpu_torch.optim import ba
+        from siftgpu_tpu_torch.optim import ba, pnp, pose_graph
         from siftgpu_tpu_torch.oracle import fixtures
-        from siftgpu_tpu_torch.pipeline import api, siftio, twoview
+        from siftgpu_tpu_torch.pipeline import api, checkpoint, metrics, siftio, slam, twoview
         assert not any(m == "jax" or m.startswith(("jax.", "siftgpu_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print(sorted(_build.KERNELS))

@@ -1,0 +1,228 @@
+"""The port's SLAM loop (`pipeline/slam.py`) against the reference, on the
+CPU at the reference tests' size (144x192).
+
+- The sequence fixtures: frames equal within 1e-6, ground-truth twists
+  within 1e-6.
+- Back-end parity: both `run_slam`s on the reference's own features (given
+  through `features=`) and the reference's bootstrap RANSAC draws (the
+  port's `epipolar.sample_minimal_sets` is patched here to return them), on
+  tests/test_slam.py's scene.  Keyframe indices equal; PnP inlier counts
+  within 2 per frame; rotations within 1e-4, positions within 1e-4 after
+  removing BA's free scale gauge (see the test).  Where a gate flips, the
+  assertion names the frame and the residual.
+- The port end to end on its own extraction meets tests/test_slam.py's
+  ground-truth bounds.
+- The metrics stream carries the reference's event kinds in its order
+  (tests/test_metrics.py's scene, T = 8, on the reference's features).
+- `run_slam(device="cuda")` without a card raises; a resident BA raises.
+"""
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from siftgpu_tpu.core.config import MatchConfig as JMatch
+from siftgpu_tpu.core.config import SiftConfig as JConfig
+from siftgpu_tpu.frontend.extract import extract_features_jit
+from siftgpu_tpu.oracle import fixtures as jfixtures
+from siftgpu_tpu.pipeline import metrics as jmetrics
+from siftgpu_tpu.pipeline import slam as jslam
+from siftgpu_tpu_torch import Features, MatchConfig, SiftConfig
+from siftgpu_tpu_torch.geometry import align, epipolar
+from siftgpu_tpu_torch.oracle import fixtures
+from siftgpu_tpu_torch.pipeline import metrics, slam
+
+H, W = 144, 192
+INTR = (170.0, 170.0, W / 2.0, H / 2.0)
+R_STEP = np.array([0.002, -0.004, 0.001])
+T_STEP = np.array([-0.08, 0.012, 0.006])
+SCFG = dict(kf_min_inliers=60, kf_flow_px=8.0, init_flow_px=10.0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The loop runs thousands of tiny ops per frame: on the CPU beside the
+    suite's other workers, intra-op threads only contend (13 s alone became
+    640 s in a 6-worker run), so each test here runs on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _sequence(T, pkg=fixtures):
+    return pkg.two_plane_sequence(T, H, W, INTR, rvec_step=R_STEP, t_step=T_STEP,
+                                  d_near=5.0, d_far=10.0, seed=4)
+
+
+class RefFeatures:
+    """The reference's features of a whole sequence, in the duck type both
+    `run_slam`s take: `frame_feats(t)` (batch 1) and host x, y, mask."""
+
+    def __init__(self, feats):
+        self.f = feats
+        self.x, self.y, self.mask = (np.asarray(a) for a in (feats.x, feats.y, feats.mask))
+
+    def frame_feats(self, t):
+        return jax.tree_util.tree_map(lambda a: a[t:t + 1], self.f)
+
+
+class PortFeatures(RefFeatures):
+    """The same features as tensors on the CPU."""
+
+    def __init__(self, feats):
+        super().__init__(feats)
+        self.t = Features(*(torch.from_numpy(np.array(a)) for a in feats))
+
+    def frame_feats(self, t):
+        return Features(*(a[t:t + 1] for a in self.t))
+
+
+def reference_draws(mask, num_hypotheses, generator):
+    """The reference's bootstrap draws: `ransac_essential`'s
+    `jax.random.choice` with `PRNGKey(0)` on the same mask."""
+    m = np.asarray(mask.cpu().numpy())
+    p = jnp.asarray(m, jnp.float32)
+    p = p / jnp.maximum(p.sum(), 1e-9)
+    idx = jax.random.choice(jax.random.PRNGKey(0), len(m), shape=(num_hypotheses, 8), p=p)
+    return torch.from_numpy(np.array(idx)).to(torch.int64)
+
+
+def _backend_pair(T, tmp_path, monkeypatch_draws):
+    frames, _ = _sequence(T, jfixtures)
+    feats = extract_features_jit(jnp.asarray(frames), JConfig(height=H, width=W, max_keypoints=768))
+    jp, tp = str(tmp_path / f"ref{T}.jsonl"), str(tmp_path / f"port{T}.jsonl")
+    with jmetrics.MetricsLogger(jp) as m:
+        ref = jslam.run_slam(frames, INTR, JConfig(height=H, width=W, max_keypoints=768),
+                             JMatch(max_match=768), jslam.SlamConfig(**SCFG),
+                             features=RefFeatures(feats), metrics=m)
+    with monkeypatch_draws(), metrics.MetricsLogger(tp) as m:
+        port = slam.run_slam(frames, INTR, SiftConfig(height=H, width=W, max_keypoints=768),
+                             MatchConfig(max_match=768), slam.SlamConfig(**SCFG),
+                             features=PortFeatures(feats), metrics=m, device="cpu")
+    kinds = [[json.loads(ln)["event"] for ln in open(p)] for p in (jp, tp)]
+    return ref, port, kinds
+
+
+@pytest.fixture(scope="module")
+def draws_patch():
+    mp = pytest.MonkeyPatch()
+
+    def patch():
+        mp.setattr(epipolar, "sample_minimal_sets", reference_draws)
+        return mp.context()
+
+    yield patch
+    mp.undo()
+
+
+@pytest.fixture(scope="module")
+def backend(tmp_path_factory, draws_patch):
+    return _backend_pair(10, tmp_path_factory.mktemp("slam"), draws_patch)
+
+
+def test_sequence_fixtures_match_reference():
+    a, ga = _sequence(10)
+    b, gb = _sequence(10, jfixtures)
+    assert np.abs(a - b).max() <= 1e-6 and np.abs(ga - gb).max() <= 1e-6
+    ks = np.concatenate([np.arange(12), np.arange(10, -2, -1)])[:24]
+    args = (np.outer(ks, R_STEP), np.outer(ks, [-0.085, 0.012, 0.006]), H, W, INTR)
+    a, ga = fixtures.two_plane_sequence_poses(*args, seed=4)
+    b, gb = jfixtures.two_plane_sequence_poses(*args, seed=4)
+    assert np.abs(a - b).max() <= 1e-6 and np.abs(ga - gb).max() <= 1e-6
+    assert a.dtype == np.float32 and ga.dtype == np.float32
+
+
+def test_slam_config_matches_reference():
+    assert ([(f.name, f.default) for f in dataclasses.fields(slam.SlamConfig)]
+            == [(f.name, f.default) for f in dataclasses.fields(jslam.SlamConfig)])
+
+
+def test_backend_parity_on_reference_features(backend):
+    """Gates decide alike (keyframes, inlier counts, map slots); the states
+    agree up to the monocular scale gauge.  Windowed BA fixes camera 0 but
+    not the scale: the scale direction is a null direction of its normal
+    equations, damped only by LM's lambda (7e-7 after 6 accepted steps), so
+    f32 rounding in either framework moves it (here by 0.38% in the
+    bootstrap window's BA, tests/test_torch_ba.py keeps the same caveat).
+    So rotations are held to 1e-4 as they are, and positions after the one
+    similarity that best maps the port's camera centers onto the
+    reference's (scale within 1%)."""
+    ref, port, _ = backend
+    assert port.keyframe_indices == ref.keyframe_indices
+    n_ref, n_port = np.asarray(ref.num_tracked), np.asarray(port.num_tracked)
+    bad = np.nonzero(np.abs(n_ref - n_port) > 2)[0]
+    assert not len(bad), f"PnP inliers differ at frames {bad}: {n_ref[bad]} vs {n_port[bad]}"
+    np.testing.assert_array_equal(port.map_mask, ref.map_mask)
+    assert port.map_n == ref.map_n
+    np.testing.assert_array_equal(port.map_anchor, ref.map_anchor)
+    d = np.abs(port.trajectory[:, :3] - ref.trajectory[:, :3]).max(axis=1)
+    worst = int(np.argmax(d))
+    assert d[worst] < 1e-4, f"frame {worst}: rotation differs by {d[worst]}"
+    cp, cr = align.camera_centers(port.trajectory), align.camera_centers(ref.trajectory)
+    s, R, t = align.umeyama(cp, cr)
+    assert abs(s - 1.0) < 1e-2, f"scale gauge {s}"
+    res = np.linalg.norm((s * (R @ cp.T)).T + t - cr, axis=1)
+    worst = int(np.argmax(res))
+    assert res[worst] < 1e-4, f"frame {worst}: aligned center differs by {res[worst]}"
+    m = ref.map_mask
+    Xp = (s * (R @ port.map_points[m].T)).T + t
+    assert np.abs(Xp - ref.map_points[m]).max() < 1e-3
+    assert [(a, b) for a, b, _ in port.odo_edges] == [(a, b) for a, b, _ in ref.odo_edges]
+    for (_, _, r), (_, _, r2) in zip(port.odo_edges, ref.odo_edges):
+        r2 = np.asarray(r2)
+        assert np.abs(r[:3] - r2[:3]).max() < 1e-4
+        assert np.abs(s * r[3:6] - r2[3:6]).max() < 1e-4
+    np.testing.assert_allclose(port.vel[:3], ref.vel[:3], atol=1e-4)
+
+
+def test_metrics_event_kinds_match_reference(tmp_path, draws_patch):
+    """tests/test_metrics.py's scene (T = 8) through both loops."""
+    _, _, (k_ref, k_port) = _backend_pair(8, tmp_path, draws_patch)
+    assert k_port == k_ref
+    assert {"bootstrap", "track", "ba_window"} <= set(k_port)
+
+
+def test_port_end_to_end_meets_ground_truth(tmp_path):
+    """tests/test_slam.py's bounds on the port's own extraction."""
+    frames, gt = _sequence(10)
+    mpath = str(tmp_path / "m.jsonl")
+    with metrics.MetricsLogger(mpath) as m:
+        res = slam.run_slam(torch.from_numpy(frames), INTR,
+                            SiftConfig(height=H, width=W, max_keypoints=768),
+                            MatchConfig(max_match=768), slam.SlamConfig(**SCFG), metrics=m,
+                            device="cpu")
+    assert len(res.keyframe_indices) >= 2
+    assert res.map_mask.sum() > 50
+    boot = res.keyframe_indices[1]
+    assert all(n > 20 for n in res.num_tracked[boot:])
+    est_c, gt_c = align.camera_centers(res.trajectory), align.camera_centers(gt)
+    rmse, _ = align.ate_rmse(est_c, gt_c, with_scale=True)
+    span = np.linalg.norm(gt_c[-1] - gt_c[0])
+    assert rmse < 0.05 * span, f"ATE {rmse} vs span {span}"
+    tracks = [json.loads(ln) for ln in open(mpath)]
+    assert all("inliers" in r and "frame" in r for r in tracks if r["event"] == "track")
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    frames = np.zeros((2, 32, 32), np.float32)
+    with pytest.raises(RuntimeError, match="not available"):
+        slam.run_slam(frames, INTR, SiftConfig(height=32, width=32), MatchConfig(),
+                      slam.SlamConfig())
+    with pytest.raises(RuntimeError, match="not available"):
+        slam.refit_map_points([], np.zeros((4, 3), np.float32), np.zeros(4, bool), INTR)
+
+
+def test_resident_ba_raises():
+    class Resident:
+        resident = True
+
+    with pytest.raises(NotImplementedError):
+        slam.run_slam(np.zeros((2, 32, 32), np.float32), INTR, SiftConfig(height=32, width=32),
+                      MatchConfig(), slam.SlamConfig(), ba_fn=Resident(), device="cpu")
