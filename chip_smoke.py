@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's four paths at 480x640 (K = 2048): the main path —
+Drives the port's paths at 480x640 (K = 2048): the main path —
 `extract_features` on four frames related by known shifts, then
 `match_descriptors_batch` on the three consecutive pairs; the SiftGPU-style
 facade path — `SiftTPU.run_sift` on two frames,
@@ -14,7 +14,9 @@ facade path — `SiftTPU.run_sift` on two frames,
 stereo pair: extract, match, 512-hypothesis RANSAC for E, pose, 10 LM x 30
 CG steps of BA; and the SLAM loop — `run_slam` over a 24-frame sequence
 (tracking, windowed BA, loop closure with online correction, checkpoint
-resume, relocalization after a blackout).  It checks them:
+resume, relocalization after a blackout); and the command line and the
+feature server — `python -m siftgpu_tpu_torch {extract,match,dump,twoview,
+slam,speed,serve}`.  It checks them:
 
   1. device: a CUDA card is required (exit 1 otherwise); prints
      `nvidia-smi --query-gpu=name,power.limit` ;
@@ -81,6 +83,26 @@ resume, relocalization after a blackout).  It checks them:
      batch-1 frame, the 2 live keyframes and the loop-closure archive, and
      the archive match's time at C = 1-16 rows.  Each run prints frames/s
      and host ms per stage (mean/max);
+  4e. CLI and server path (after 4d): launch counters reset to 0, then
+     only the CLI's and the server's own launches count; in process,
+     through `cli.main`: `extract` (its `.sift` byte-identical to
+     `SiftTPU.save_sift` of the same loaded image, its `--npz` store with
+     the reference's keys and dtypes), `match --viz` (the facade's printed
+     count, >= 90% shift inliers), `dump --kp` (every file at its octave's
+     shape) and `twoview` on phase 4c's pair as `.npy` (its ground-truth
+     bounds); kernels 1-4 and the octave kernel must have launched; the
+     port's `serve` in a thread driven by its client: RUNSIFT,
+     SET_DESCRIPTORS + GET_MATCH on 4096-padded sets, GET_GUIDED_MATCH (H),
+     SET_KEYPOINT_LIST + RUNSIFT_WITH_KEYPOINTS, each bit-identical to the
+     in-process call; kernels 4g and 5 must have launched; the host ms of
+     RUNSIFT + GET_FEATURE_VECTOR remote and in process; a spawned server
+     (`create_remote_sift_tpu(spawn=True)`): its start time, features
+     bit-identical, exit code 0; in child processes, `slam` on phase 4d's
+     loop scene (default SlamConfig): 24 TUM rows with unit quaternions,
+     within 2e-6 of an in-process `run_slam` + the final pose-graph pass,
+     the reference's metric event kinds, and `--resume` from its checkpoint
+     within 2e-6 of it; `speed --iters 20`, then with `--trace` (a Chrome
+     trace with CUDA kernel events);
   5. times: extract and match per batch, the facade calls, the whole
      pyramid with the octave kernel and with the cuDNN chain, the two-view
      stages (CUDA events); each kernel against its plain version and, where
@@ -91,7 +113,7 @@ resume, relocalization after a blackout).  It checks them:
 
 Any failed check raises.  The last three lines are the card's name and
 power limit, one JSON object with a record per kernel (`slam_launches`: its
-launches in phase 4d's first run), and
+launches in phase 4d's first run; `cli_launches`: in phase 4e), and
 `{"ok": true, "device": {...}}`.  Imports nothing of JAX.
 """
 
@@ -1043,6 +1065,26 @@ def rot_angle(Ra, Rb) -> float:
     return float(np.arctan2(s, (np.trace(dR) - 1) / 2))
 
 
+def twoview_truth(res, meta, label: str) -> None:
+    """tests/test_twoview.py's ground-truth bounds on a two-view result of
+    the stereo pair with pose (RVEC, T_GT); logged, and raised on failure."""
+    nm, ni = int(res.num_matches), int(res.num_inliers)
+    ang = rot_angle(res.R.cpu().numpy(), meta["R"])
+    t = res.t.cpu().numpy()
+    tn, tg = t / np.linalg.norm(t), T_GT / np.linalg.norm(T_GT)
+    tdir = float(min(np.abs(tn - tg).max(), np.abs(tn + tg).max()))
+    rms = float(res.rms)
+    m = res.point_mask.cpu().numpy()
+    z = res.points.cpu().numpy()[m][:, 2] / (np.linalg.norm(t) / np.linalg.norm(T_GT))
+    bands = float(((z > 4.0) & (z < 6.0)).mean() + ((z > 8.0) & (z < 12.0)).mean())
+    log(f"  {label}: {nm} matches, {ni} inliers, {int(m.sum())} points; rotation "
+        f"error {ang:.3g} rad, translation direction {tdir:.3g}, RMS {rms:.4f} px, "
+        f"{bands:.4f} of the points in the depth bands")
+    if not (nm > 100 and ni > 0.5 * nm and ang < 0.01 and tdir < 0.02 and rms < 0.75
+            and bands > 0.8):
+        raise AssertionError(f"two-view ({label}): a ground-truth bound failed")
+
+
 def twoview_phase(dev, sync, h=H, w=W, k=K):
     """Phase 4c: `two_view_reconstruct` (BASELINE config 4) on a calibrated
     two-plane stereo pair with launch counters reset before it.  Returns
@@ -1086,22 +1128,7 @@ def twoview_phase(dev, sync, h=H, w=W, k=K):
         if missing:
             raise AssertionError(f"two-view path did not launch {missing}")
 
-    # tests/test_twoview.py's ground-truth bounds
-    nm, ni = int(res.num_matches), int(res.num_inliers)
-    ang = rot_angle(res.R.cpu().numpy(), meta["R"])
-    t = res.t.cpu().numpy()
-    tn, tg = t / np.linalg.norm(t), T_GT / np.linalg.norm(T_GT)
-    tdir = float(min(np.abs(tn - tg).max(), np.abs(tn + tg).max()))
-    rms = float(res.rms)
-    m = res.point_mask.cpu().numpy()
-    z = res.points.cpu().numpy()[m][:, 2] / (np.linalg.norm(t) / np.linalg.norm(T_GT))
-    bands = float(((z > 4.0) & (z < 6.0)).mean() + ((z > 8.0) & (z < 12.0)).mean())
-    log(f"  {h}x{w}, f = {f:g} px: {nm} matches, {ni} inliers, {int(m.sum())} points; rotation "
-        f"error {ang:.3g} rad, translation direction {tdir:.3g}, RMS {rms:.4f} px, "
-        f"{bands:.4f} of the points in the depth bands")
-    if not (nm > 100 and ni > 0.5 * nm and ang < 0.01 and tdir < 0.02 and rms < 0.75
-            and bands > 0.8):
-        raise AssertionError("two-view: a ground-truth bound failed")
+    twoview_truth(res, meta, f"{h}x{w}, f = {f:g} px")
 
     # the card's features, matches and draws through the port on the CPU
     feats, mres = inputs[0][0], inputs[0][1]
@@ -1371,6 +1398,361 @@ def slam_phase(dev, sync, par, h=H, w=W, k=K):
     return launches
 
 
+# the reference's metric event kinds (siftgpu_tpu/pipeline/slam.py)
+EVENT_KINDS = {"bootstrap", "track", "keyframe", "ba_window", "checkpoint", "loop_closure",
+               "loop_correction", "relocalized", "track_lost", "track_recovered"}
+STORE_DTYPES = {"x": "float32", "y": "float32", "sigma": "float32", "theta": "float32",
+                "response": "float32", "octave": "int32", "desc": "uint8", "mask": "bool"}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches inside do not count: the counters are restored after."""
+    from siftgpu_tpu_torch.ops import _build
+
+    saved = {name: kern.launches for name, kern in _build.KERNELS.items()}
+    try:
+        yield
+    finally:
+        for name, kern in _build.KERNELS.items():
+            kern.launches = saved[name]
+
+
+def run_module(args, timeout: int = 600):
+    """`python -m siftgpu_tpu_torch *args` in a child process on this tree,
+    its output captured.  Returns (stdout, wall seconds); raises on rc != 0."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=root if not path else root + os.pathsep + path)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "siftgpu_tpu_torch", *args], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    sec = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"python -m siftgpu_tpu_torch {' '.join(args)}: rc {out.returncode}\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    return out.stdout, sec
+
+
+def read_tum(path: str, T: int) -> np.ndarray:
+    """The [T, 8] rows of a TUM file; raises unless the quaternions are unit."""
+    rows = np.loadtxt(path, ndmin=2)
+    if rows.shape != (T, 8):
+        raise AssertionError(f"{path}: {rows.shape} TUM values, not ({T}, 8)")
+    qn = np.linalg.norm(rows[:, 4:], axis=1)
+    if not np.abs(qn - 1.0).max() <= 1e-5:
+        raise AssertionError(f"{path}: quaternion norms {qn.min()}..{qn.max()}")
+    return rows
+
+
+def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_phase(dev, sync, frames, k=K):
+    """Phase 4e: the command line and the feature server, with launch
+    counters reset before it; only the CLI's and the server's own launches
+    count (the in-process runs they are held to are not counted).  Returns
+    those launches."""
+    import os
+    import queue
+    import tempfile
+    import threading
+
+    import torch
+
+    from siftgpu_tpu_torch.core import image as imio
+    from siftgpu_tpu_torch.core.config import MatchConfig
+    from siftgpu_tpu_torch.frontend import orient, pyramid
+    from siftgpu_tpu_torch.geometry import align
+    from siftgpu_tpu_torch.ops import _build
+    from siftgpu_tpu_torch.oracle import fixtures
+    from siftgpu_tpu_torch.pipeline import api, cli, server, siftio, slam, twoview
+
+    log("phase 4e: CLI and server path")
+    cuda = dev.type == "cuda"
+    flag = [] if cuda else ["--cpu"]
+    h, w = frames.shape[1:]
+    for kern in _build.KERNELS.values():
+        kern.launches = 0
+
+    def launched():
+        return {name: kern.launches for name, kern in _build.KERNELS.items()}
+
+    def require(names, what):
+        if cuda:
+            missing = [n for n in names if launched()[n] == 0]
+            if missing:
+                raise AssertionError(f"{what} did not launch {missing}")
+
+    def cli_run(argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv + flag)
+        sync()
+        sec = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        log(f"  cli.main({argv[0]} ...): rc {rc}, {sec * 1e3:.1f} ms")
+        for ln in lines[:6]:
+            log(f"    | {ln}")
+        if rc != 0:
+            raise AssertionError(f"cli {argv[0]}: rc {rc}")
+        return lines
+
+    with tempfile.TemporaryDirectory() as tmp:
+        p = lambda name: os.path.join(tmp, name)
+
+        # ---- in-process subcommands, through cli.main ----
+        imio.save_pgm(p("f0.pgm"), frames[0])
+        imio.save_pgm(p("f1.pgm"), frames[1])
+        img0, img1 = imio.load_image(p("f0.pgm")), imio.load_image(p("f1.pgm"))
+        cli_run(["extract", p("f0.pgm"), "--out", p("f0.sift"), "--npz", p("f0.npz")])
+        with uncounted():
+            ref = api.SiftTPU(device=dev)
+            ref.run_sift(img0)
+            ref.save_sift(p("ref.sift"))
+            k0, d0 = ref.get_feature_vector()
+            ref.run_sift(img1)
+            k1, d1 = ref.get_feature_vector()
+            m = api.SiftMatchTPU(max_sift=max(len(d0), len(d1), 1), device=dev)
+            m.set_descriptors(0, d0)
+            m.set_descriptors(1, d1)
+            pairs = m.get_sift_match()
+        with open(p("f0.sift"), "rb") as a, open(p("ref.sift"), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("cli extract: the .sift file differs from SiftTPU.save_sift's")
+        store = siftio.load_feature_store(p("f0.npz"))
+        dtypes = {key: str(v.dtype) for key, v in store.items() if key != "frame_ids"}
+        if (dtypes != STORE_DTYPES or "frame_ids" not in store
+                or store["desc"].shape != store["x"].shape + (128,) or len(store["x"]) != 1):
+            raise AssertionError(f"cli extract: the feature store holds {dtypes}")
+        log(f"  extract: {len(k0)} keypoints, .sift byte-identical to the in-process card run's; "
+            f"store keys {sorted(store)}")
+
+        lines = cli_run(["match", p("f0.pgm"), p("f1.pgm"), "--viz", p("m.ppm")])
+        rate = shift_inliers(k0, k1, pairs)
+        want = f"{len(d0)} x {len(d1)} features -> {len(pairs)} matches"
+        log(f"  match: printed '{lines[0]}', the facade's '{want}'; shift inlier rate {rate:.4f}")
+        if lines[0] != want or rate < 0.9:
+            raise AssertionError(f"cli match: '{lines[0]}' vs '{want}', inlier rate {rate}")
+        if imio.load_pnm(p("m.ppm")).shape != (h, 2 * w, 3):
+            raise AssertionError("cli match: the --viz canvas has the wrong shape")
+
+        cli_run(["dump", p("f0.pgm"), "--kp", "--outdir", p("dump")])
+        with uncounted():
+            cfg = api.SiftTPU(device=dev).config_for(h, w)
+            pyr = pyramid.build_pyramid(torch.from_numpy(img0[None]).to(dev), cfg)
+            expect = {"keypoints.ppm": (h, w, 3)}
+            for o, oc in enumerate(pyr):
+                gshape = tuple(orient.gradient_stack(oc.gauss, cfg).gx.shape[-2:])
+                for kind, n, shape in (("gauss", oc.gauss.shape[1], tuple(oc.gauss.shape[-2:])),
+                                       ("dog", oc.dog.shape[1], tuple(oc.dog.shape[-2:])),
+                                       ("gradmag", cfg.dog_levels, gshape)):
+                    expect.update({f"o{o}_{kind}{l}.pgm": shape for l in range(n)})
+        got = {name: imio.load_pnm(os.path.join(p("dump"), name)).shape
+               for name in os.listdir(p("dump"))}
+        if got != expect:
+            raise AssertionError(f"cli dump: files {sorted(got)} vs {sorted(expect)}")
+        log(f"  dump: {len(got)} files, the octave shapes "
+            f"{[tuple(oc.gauss.shape[-2:]) for oc in pyr]}")
+
+        f = 180.0 * w / 200.0      # phase 4c's pair
+        img0t, img1t, meta = fixtures.two_plane_stereo(h, w, (f, f, w / 2.0, h / 2.0), RVEC, T_GT,
+                                                       d_near=5.0, d_far=10.0, seed=2)
+        np.save(p("p0.npy"), img0t)
+        np.save(p("p1.npy"), img1t)
+        results = []
+        with recording(twoview, "two_view_reconstruct", [], results):
+            cli_run(["twoview", p("p0.npy"), p("p1.npy"), "--focal", f"{f:g}", "-tc", str(k)])
+        twoview_truth(results[0], meta, f"twoview {h}x{w}, f = {f:g} px")
+        log(f"  launches of the subcommands: {launched()}")
+        require(MAIN_KERNELS, "the CLI subcommands")
+
+        # ---- the port's server in a thread, driven by the port's client ----
+        q = queue.Queue()
+        th = threading.Thread(target=server.serve, args=(0,), daemon=True,
+                              kwargs=dict(max_sift=4096, device=dev, _ready_cb=q.put))
+        th.start()
+        combo = server.RemoteComboSiftTPU("127.0.0.1", q.get(timeout=120))
+        try:
+            remote = []
+            for img in frames[:2]:
+                combo.sift.run_sift(img)
+                remote.append(combo.sift.get_feature_vector())
+            for i, (kk, dd) in enumerate(remote):
+                combo.matcher.set_descriptors(i, dd)
+                combo.matcher.set_feature_location(i, kk)
+            Hm = np.array([[1, 0, SHIFT[0]], [0, 1, SHIFT[1]], [0, 0, 1]], np.float32)
+            r_pairs = combo.matcher.get_sift_match()
+            r_guided = combo.matcher.get_guided_sift_match(H=Hm, hdistmax=3.0)
+            combo.sift.set_keypoint_list(remote[0][0])
+            combo.sift.run_sift_with_keypoints(frames[0])
+            r_only = combo.sift.get_feature_vector()
+            with uncounted():
+                sift = api.SiftTPU(device=dev)
+                local = []
+                for img in frames[:2]:
+                    sift.run_sift(img)
+                    local.append(sift.get_feature_vector())
+                mt = api.SiftMatchTPU(max_sift=4096, device=dev)
+                for i, (kk, dd) in enumerate(local):
+                    mt.set_descriptors(i, dd)
+                    mt.set_feature_location(i, kk)
+                l_pairs, l_guided = mt.get_sift_match(), mt.get_guided_sift_match(H=Hm, hdistmax=3.0)
+                sift.set_keypoint_list(local[0][0])
+                sift.run_sift_with_keypoints(frames[0])
+                l_only = sift.get_feature_vector()
+            checks = {"RUNSIFT": all(same_bits(a, b) for r, l in zip(remote, local)
+                                     for a, b in zip(r, l)),
+                      "GET_MATCH": same_bits(r_pairs, l_pairs),
+                      "GET_GUIDED_MATCH": same_bits(r_guided, l_guided),
+                      "RUNSIFT_WITH_KEYPOINTS": all(same_bits(a, b) for a, b in zip(r_only, l_only))}
+            log(f"  server: {len(remote[0][0])}, {len(remote[1][0])} keypoints, {len(r_pairs)} "
+                f"pairs, {len(r_guided)} guided (H), descriptor-only {len(r_only[0])}; "
+                f"bit-identical to the in-process calls: {checks}")
+            if not all(checks.values()) or shift_inliers(local[0][0], local[1][0], l_pairs) < 0.9:
+                raise AssertionError(f"server: {checks}")
+            log(f"  launches of the subcommands and the server: {launched()}")
+            require(FACADE_KERNELS, "the server")
+            # the protocol's cost: RUNSIFT + GET_FEATURE_VECTOR, remote and in process
+            with uncounted():
+                t_r, t_l = [], []
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    combo.sift.run_sift(frames[0])
+                    kk, dd = combo.sift.get_feature_vector()
+                    t_r.append((time.perf_counter() - t0) * 1e3)
+                    t0 = time.perf_counter()
+                    sift.run_sift(frames[0])
+                    sift.get_feature_vector()
+                    t_l.append((time.perf_counter() - t0) * 1e3)
+            log(f"  RUNSIFT + GET_FEATURE_VECTOR, host ms over 10 (median / mean / min): remote "
+                f"{np.median(t_r):.3f} / {np.mean(t_r):.3f} / {np.min(t_r):.3f}, in process "
+                f"{np.median(t_l):.3f} / {np.mean(t_l):.3f} / {np.min(t_l):.3f}; the protocol "
+                f"{np.median(t_r) - np.median(t_l):.3f} ms for a {frames[0].nbytes} B image and "
+                f"{kk.nbytes + dd.nbytes} B of features")
+            # its encoding alone: _pack + _unpack of the request and the reply
+            for label, msg in (("request", ("RUNSIFT", {"image": frames[0]})),
+                               ("reply", (True, (kk, dd)))):
+                t_c = []
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    server._unpack(server._pack(msg))
+                    t_c.append((time.perf_counter() - t0) * 1e3)
+                log(f"    _pack + _unpack of the {label}: median {np.median(t_c):.3f} ms")
+        finally:
+            combo.shutdown()
+            th.join(timeout=60)
+        if th.is_alive():
+            raise AssertionError("server: the thread did not stop on SHUTDOWN")
+        cli_launches = launched()
+
+        # ---- a spawned server (python -m siftgpu_tpu_torch serve) ----
+        if cuda:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        combo = server.create_remote_sift_tpu(free_port(), spawn=True, cpu=not cuda)
+        proc = combo._proc
+        try:
+            if not combo.ping():
+                raise AssertionError("spawned server: no pong")
+            t_up = time.perf_counter() - t0
+            t_runs, t_l = [], []
+            for i in range(12):
+                t0 = time.perf_counter()
+                combo.sift.run_sift(frames[0])
+                ks, ds = combo.sift.get_feature_vector()
+                t_runs.append((time.perf_counter() - t0) * 1e3)
+                if i >= 2:   # in process, in turns with the server's steady state
+                    with uncounted():
+                        t0 = time.perf_counter()
+                        sift.run_sift(frames[0])
+                        sift.get_feature_vector()
+                        t_l.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            combo.shutdown()
+        same = same_bits(ks, local[0][0]) and same_bits(ds, local[0][1])
+        log(f"  spawned server: up in {t_up:.2f} s (spawn to pong), RUNSIFT + GET_FEATURE_VECTOR "
+            f"{t_runs[0]:.1f} ms first (kernel libraries loaded), {t_runs[1]:.1f} ms second, then "
+            f"median {np.median(t_runs[2:]):.3f} / min {np.min(t_runs[2:]):.3f} ms over 10 against "
+            f"{np.median(t_l):.3f} / {np.min(t_l):.3f} in process; features bit-identical to the "
+            f"in-process run: {same}; exit code {proc.returncode}")
+        if not same or proc.returncode != 0:
+            raise AssertionError(f"spawned server: same {same}, rc {proc.returncode}")
+
+        # ---- the shell entry point in child processes ----
+        loop, gt, intr = slam_loop_scene(fixtures, h, w)
+        np.save(p("loop.npy"), loop)
+        focal = f"{intr[0]:.2f}"
+        T = len(loop)
+        args = ["slam", p("loop.npy"), "--focal", focal, "--checkpoint", p("c.npz")] + flag
+        if cuda:
+            torch.cuda.empty_cache()
+        out, sec = run_module(args + ["--traj", p("t.txt"), "--metrics", p("m.jsonl")])
+        printed = out.strip().splitlines()
+        log(f"  python -m siftgpu_tpu_torch slam ({sec:.1f} s of wall time): {printed[0]}")
+        rows = read_tum(p("t.txt"), T)
+        with uncounted():
+            fl = float(focal)
+            intr_cli = (fl, fl, w / 2.0, h / 2.0)
+            cfg = api.SiftTPU(device=dev).config_for(h, w)
+            res = slam.run_slam(loop, intr_cli, cfg, MatchConfig(max_match=cfg.max_keypoints),
+                                slam.SlamConfig(), device=dev)
+            if res.loop_edges and slam.apply_pose_graph_sim3(
+                    res.keyframes, res.trajectory, res.map_points, res.map_mask, res.map_anchor,
+                    res.loop_edges, odo_edges=res.odo_edges, device=dev):
+                slam.refit_map_points(res.keyframes, res.map_points, res.map_mask, intr_cli,
+                                      device=dev)
+        siftio.save_trajectory_tum(p("in.txt"), res.trajectory)
+        d_in = float(np.abs(rows - read_tum(p("in.txt"), T)).max())
+        a_cli = align.ate_rmse(rows[:, 1:4], align.camera_centers(gt), with_scale=True)[0]
+        kinds = {json.loads(ln)["event"] for ln in open(p("m.jsonl"))}
+        log(f"    {T} TUM rows, unit quaternions; against the in-process run_slam + final pass "
+            f"(keyframes {res.keyframe_indices}, {len(res.loop_edges)} loop edges): max diff "
+            f"{d_in:.3g}; Sim(3) ATE of the TUM centres {a_cli:.5f} (span "
+            f"{loop_span(align, gt):.4f}); metric events {sorted(kinds)}")
+        if not d_in <= 2e-6:
+            raise AssertionError(f"cli slam: TUM rows {d_in} from the in-process run")
+        if not {"bootstrap", "track", "keyframe", "ba_window", "checkpoint"} <= kinds <= EVENT_KINDS:
+            raise AssertionError(f"cli slam: metric events {kinds}")
+        out, sec = run_module(args + ["--resume", "--traj", p("r.txt")])
+        d_r = float(np.abs(read_tum(p("r.txt"), T) - rows).max())
+        log(f"  slam --resume ({sec:.1f} s of wall time): {out.strip().splitlines()[0]}; TUM rows "
+            f"max diff {d_r:.3g} from the first run's")
+        if not d_r <= 2e-6:
+            raise AssertionError(f"cli slam --resume: TUM rows {d_r} from the first run's")
+
+        out, sec = run_module(["speed", p("f0.pgm"), "--iters", "20"] + flag)
+        log(f"  python -m siftgpu_tpu_torch speed --iters 20 ({sec:.1f} s of wall time): "
+            f"{out.strip().splitlines()[-1]}")
+        out, sec = run_module(["speed", p("f0.pgm"), "--iters", "20", "--trace", p("trace")] + flag)
+        lines = out.strip().splitlines()
+        with open(p("trace/trace.json")) as fh:
+            events = json.load(fh)["traceEvents"]
+        n_kern = sum(e.get("cat") == "kernel" for e in events)
+        log(f"  python -m siftgpu_tpu_torch speed --iters 20 --trace ({sec:.1f} s of wall time): "
+            f"{lines[-1]}; trace: {len(events)} events, {n_kern} CUDA kernel events")
+        if cuda and n_kern == 0:
+            raise AssertionError("cli speed --trace: no CUDA kernel in the trace")
+    log(f"  CLI and server launches {cli_launches}")
+    if cuda:
+        missing = [n for n, c in cli_launches.items() if c == 0]
+        if missing:
+            raise AssertionError(f"the CLI and the server did not launch {missing}")
+    return cli_launches
+
+
 def run(device: str, h=H, w=W, b=B, k=K):
     """The whole smoke run on `device` (a CUDA device on the chip; the CPU
     only to rehearse the control flow, where both routes are plain)."""
@@ -1523,8 +1905,12 @@ def run(device: str, h=H, w=W, b=B, k=K):
     # ---- 4d. the SLAM path, counted; last, since its profiled run leaves
     # later torch.profiler sessions without the hand kernels' device time ----
     slam_launches = slam_phase(dev, sync, par, h, w, k)
+
+    # ---- 4e. the command line and the feature server, counted ----
+    cli_launches = cli_phase(dev, sync, frames, k)
     for rec in records:
-        rec.update(slam_launches=slam_launches[rec["name"]], max_abs_err=par.err[rec["name"]])
+        rec.update(slam_launches=slam_launches[rec["name"]], cli_launches=cli_launches[rec["name"]],
+                   max_abs_err=par.err[rec["name"]])
     return records
 
 

@@ -1,9 +1,9 @@
-"""Host-side image IO (`GLTexInput::LoadImageFile`), in NumPy.
+"""Host-side image IO (`GLTexInput::LoadImageFile`).
 
-Port of `siftgpu_tpu/core/image.py` on its NumPy/PIL route: PGM/PPM decode,
-NPY, other formats through PIL when it is installed; grayscale conversion
-and the `-maxd` pre-downsample.  The C++ batch decoder of `native/` has no
-binding in the port yet.
+Port of `siftgpu_tpu/core/image.py`: PGM/PPM/BMP decode through the C++
+loader of `native/` (`core/native.py`) where a compiler is on PATH, the
+NumPy codecs (PGM/PPM) and PIL (other formats) where none is; NPY;
+grayscale conversion and the `-maxd` pre-downsample.
 """
 
 from __future__ import annotations
@@ -11,6 +11,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from . import native
 
 __all__ = [
     "to_grayscale", "load_image", "load_pnm", "save_pgm", "save_ppm",
@@ -103,10 +105,13 @@ def save_ppm(path: str, img: np.ndarray) -> None:
 
 
 def load_image(path) -> np.ndarray:
-    """File path -> grayscale float32 [0, 1]."""
+    """File path -> grayscale float32 [0, 1].  PNM and BMP files go through
+    the native loader where `native.available()`, else through NumPy / PIL."""
     if isinstance(path, bytes):
         path = path.decode()
     ext = os.path.splitext(path)[1].lower()
+    if ext in (".pgm", ".ppm", ".pnm", ".bmp") and native.available():
+        return native.load_image(path)
     if ext in (".pgm", ".ppm", ".pnm"):
         return to_grayscale(load_pnm(path))
     if ext == ".npy":

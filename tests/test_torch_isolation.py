@@ -26,7 +26,7 @@ def test_imports_without_jax_or_reference():
             sys.modules[name] = None          # any import of them now fails
         import siftgpu_tpu_torch
         from siftgpu_tpu_torch import bounds, convert
-        from siftgpu_tpu_torch.core import config, flags, image, precision, scalespace
+        from siftgpu_tpu_torch.core import config, flags, image, native, precision, scalespace
         from siftgpu_tpu_torch.frontend import (describe, detect, extract, fused, match, orient,
                                                 pyramid, redetect)
         from siftgpu_tpu_torch.geometry import align, epipolar, pose
@@ -34,7 +34,9 @@ def test_imports_without_jax_or_reference():
                                            kp_engine, match_kernel, pyramid_kernel)
         from siftgpu_tpu_torch.optim import ba, pnp, pose_graph
         from siftgpu_tpu_torch.oracle import fixtures
-        from siftgpu_tpu_torch.pipeline import api, checkpoint, metrics, siftio, slam, twoview
+        from siftgpu_tpu_torch.frontend.orient import compute_orientations
+        from siftgpu_tpu_torch.pipeline import (api, checkpoint, cli, metrics, server, siftio, slam,
+                                                twoview, viz)
         assert not any(m == "jax" or m.startswith(("jax.", "siftgpu_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print(sorted(_build.KERNELS))
