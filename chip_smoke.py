@@ -16,7 +16,8 @@ CG steps of BA; and the SLAM loop — `run_slam` over a 24-frame sequence
 (tracking, windowed BA, loop closure with online correction, checkpoint
 resume, relocalization after a blackout); and the command line and the
 feature server — `python -m siftgpu_tpu_torch {extract,match,dump,twoview,
-slam,speed,serve}`.  It checks them:
+slam,speed,serve}`; and config 5 — `parallel.sequence.run_slam_distributed`
+in two ranks.  It checks them:
 
   1. device: a CUDA card is required (exit 1 otherwise); prints
      `nvidia-smi --query-gpu=name,power.limit` ;
@@ -103,6 +104,27 @@ slam,speed,serve}`.  It checks them:
      the reference's metric event kinds, and `--resume` from its checkpoint
      within 2e-6 of it; `speed --iters 20`, then with `--trace` (a Chrome
      trace with CUDA kernel events);
+  4f. config 5 (after 4e): `siftgpu_tpu_torch.parallel` in 2 ranks spawned
+     on this card with gloo (CUDA tensors staged through the host; NCCL
+     refuses two ranks on one device), which load the parent's libraries:
+     `run_ba_distributed` against one process's `run_ba` (cost < 1e-4,
+     rotations and, after the scale gauge, translations within 1e-3,
+     points within 5e-3), the three edge-sharded pose graphs against one
+     process (1e-4), `extract_features_dp` on phase 4's frames
+     bit-identical to phase 4's extraction; then `run_slam_distributed` on
+     phase 4d's loop scene at 480x640: run A (resident map, launch
+     counters reset in each rank: kernels 1-4 and the octave kernel must
+     have launched in every rank) with both ranks bit-identical, 4d's
+     keyframes, the trajectory within 1e-3 of 4d's first run after the
+     end-of-run pass, ATE within 4d's bound, a loop edge, every dirty-slot
+     upload after the first window under half the map; run B
+     (`resident_map=False, global_ba=True`): run A's keyframes, the same ATE
+     bound; run C: run A's state after frame 12 saved by rank 0 and
+     resumed at 13, within 1e-4 of run A; and one NCCL rank repeating run
+     A twice (the first warms the fresh process up), each within 1e-4.
+     The ranks must compile nothing.  Frames/s and host ms per stage per
+     rank, all-reduce and all-gather calls and host ms per windowed BA,
+     the time from the spawn to the group joined;
   5. times: extract and match per batch, the facade calls, the whole
      pyramid with the octave kernel and with the cuDNN chain, the two-view
      stages (CUDA events); each kernel against its plain version and, where
@@ -111,10 +133,11 @@ slam,speed,serve}`.  It checks them:
      back-to-back calls and device time (torch.profiler), beside the
      least time the card could take (`siftgpu_tpu_torch/bounds.py`).
 
-Any failed check raises.  The last three lines are the card's name and
-power limit, one JSON object with a record per kernel (`slam_launches`: its
-launches in phase 4d's first run; `cli_launches`: in phase 4e), and
-`{"ok": true, "device": {...}}`.  Imports nothing of JAX.
+Any failed check raises, a failed rank included.  The last three lines
+are the card's name and power limit, one JSON object with a record per
+kernel (`slam_launches`: its launches in phase 4d's first run;
+`cli_launches`: in phase 4e; `dist_launches`: rank 0's in phase 4f's run
+A), and `{"ok": true, "device": {...}}`.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1196,12 +1219,27 @@ def tracked_from(num_tracked, boot: int, floor: int = 20) -> int:
     return t
 
 
+def final_pass(res, intr, dev):
+    """The end-of-run Sim(3) pose-graph refinement + points-only refit
+    (one process), in place; returns res."""
+    from siftgpu_tpu_torch.pipeline import slam
+
+    if slam.apply_pose_graph_sim3(res.keyframes, res.trajectory, res.map_points, res.map_mask,
+                                  res.map_anchor, res.loop_edges, odo_edges=res.odo_edges,
+                                  device=dev):
+        slam.refit_map_points(res.keyframes, res.map_points, res.map_mask, intr, device=dev)
+    return res
+
+
 def slam_phase(dev, sync, par, h=H, w=W, k=K):
     """Phase 4d: the SLAM loop (`run_slam`) on the out-and-back loop scene
     (tracking, windowed BA, loop closure with online correction), a
     checkpoint before the revisit resumed over the whole sequence, and the
     blackout scene (LOST state, relocalization), with launch counters reset
-    before the first run.  Returns the hand kernels' launches in that run."""
+    before the first run.  Returns the hand kernels' launches in that run
+    and phase 4f's reference: the first run's keyframes and frames/s, its
+    trajectory after the end-of-run pass (the resumed run's, which replays
+    it) and the ATE bound (None off the reference's size)."""
     import os
     import tempfile
 
@@ -1333,6 +1371,8 @@ def slam_phase(dev, sync, par, h=H, w=W, k=K):
         f"ATE {ate1:.5f} -> {ate_pg:.5f}")
     if not (np.isfinite(resumed.trajectory).all() and np.isfinite(resumed.map_points).all()):
         raise AssertionError("SLAM: the pose-graph refinement left a non-finite state")
+    dist_ref = dict(keyframes=list(res.keyframe_indices), fps=T / sec, bound=bound,
+                    trajectory=resumed.trajectory.copy())
 
     # ---- runs 4-5: the blackout scene, clean and dark ----
     clean, dark, gt_b, intr_b = slam_blackout_scene(fixtures, h, w)
@@ -1395,7 +1435,7 @@ def slam_phase(dev, sync, par, h=H, w=W, k=K):
                                                                   mcfg), sync, 5)))
             log("  archive match (CUDA events, ms per call): "
                 + ", ".join(f"C = {C}: {ms:.3f}" for C, ms in costs))
-    return launches
+    return launches, dist_ref
 
 
 # the reference's metric event kinds (siftgpu_tpu/pipeline/slam.py)
@@ -1707,13 +1747,9 @@ def cli_phase(dev, sync, frames, k=K):
             fl = float(focal)
             intr_cli = (fl, fl, w / 2.0, h / 2.0)
             cfg = api.SiftTPU(device=dev).config_for(h, w)
-            res = slam.run_slam(loop, intr_cli, cfg, MatchConfig(max_match=cfg.max_keypoints),
-                                slam.SlamConfig(), device=dev)
-            if res.loop_edges and slam.apply_pose_graph_sim3(
-                    res.keyframes, res.trajectory, res.map_points, res.map_mask, res.map_anchor,
-                    res.loop_edges, odo_edges=res.odo_edges, device=dev):
-                slam.refit_map_points(res.keyframes, res.map_points, res.map_mask, intr_cli,
-                                      device=dev)
+            res = final_pass(slam.run_slam(loop, intr_cli, cfg,
+                                           MatchConfig(max_match=cfg.max_keypoints),
+                                           slam.SlamConfig(), device=dev), intr_cli, dev)
         siftio.save_trajectory_tum(p("in.txt"), res.trajectory)
         d_in = float(np.abs(rows - read_tum(p("in.txt"), T)).max())
         a_cli = align.ate_rmse(rows[:, 1:4], align.camera_centers(gt), with_scale=True)[0]
@@ -1751,6 +1787,440 @@ def cli_phase(dev, sync, frames, k=K):
         if missing:
             raise AssertionError(f"the CLI and the server did not launch {missing}")
     return cli_launches
+
+
+# ---------------- phase 4f: config 5 in two ranks ----------------
+
+DIST_RANKS = 2
+DIST_TIMEOUT = 600          # seconds a collective may wait before its rank fails
+
+
+def ba_problem(n_cams=4, n_pts=64, seed=7, perturb=0.05):
+    """tests/test_ba.py's `_make_problem` in NumPy: noise-free observations
+    of n_pts points by n_cams cameras, cameras 1.. and the points
+    perturbed.  Returns a `ba.BAProblem` on the CPU."""
+    import torch
+
+    from siftgpu_tpu_torch.geometry import pose
+    from siftgpu_tpu_torch.optim import ba
+
+    rng = np.random.default_rng(seed)
+    X = rng.uniform([-2, -2, 6], [2, 2, 10], (n_pts, 3))
+    intr = np.array([500.0, 500.0, 320.0, 240.0], np.float32)
+    cams = np.stack([np.concatenate([rng.normal(0, 0.03, 3),
+                                     np.array([0.5 * i, 0, 0]) + rng.normal(0, 0.02, 3)])
+                     for i in range(n_cams)]).astype(np.float32)
+    R = pose.exp_so3(torch.from_numpy(cams[:, :3])).double().numpy()
+    xc = np.einsum("cij,pj->cpi", R, X) + cams[:, None, 3:]
+    uv = (intr[:2] * xc[..., :2] / xc[..., 2:] + intr[2:]).reshape(-1, 2)
+    cams0 = cams.copy()
+    cams0[1:] += rng.normal(0, perturb, cams0[1:].shape).astype(np.float32)
+    X0 = X + rng.normal(0, perturb, X.shape)
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.ascontiguousarray(a)).to(dt)
+    return ba.BAProblem(cams=t(cams0), points=t(X0), intrinsics=t(intr),
+                        cam_idx=t(np.repeat(np.arange(n_cams), n_pts), torch.int32),
+                        pt_idx=t(np.tile(np.arange(n_pts), n_cams), torch.int32), uv=t(uv),
+                        w=torch.ones(n_cams * n_pts))
+
+
+def circle_graphs(n=12, seed=11):
+    """{"se3", "sim3", "sim3_cg"}: NumPy fields of a pose graph on a circle
+    (odometry with noise, two loops, an odd edge count so that the
+    distributed optimizers pad), SE(3) and Sim(3) (scale drift e^(0.05 k),
+    every scale started at 1), as tests/test_pose_graph.py builds them."""
+    import torch
+
+    from siftgpu_tpu_torch.geometry import pose as P
+    from siftgpu_tpu_torch.optim import pose_graph as pg
+
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(n) / n
+    gt6 = torch.from_numpy(np.stack([np.zeros(n), ang, np.zeros(n), np.cos(ang), np.zeros(n),
+                                     np.sin(ang)], 1).astype(np.float32))
+    R, t = P.exp_se3(gt6)
+    s = torch.exp(0.05 * torch.arange(n, dtype=torch.float32))
+    ei = np.r_[np.arange(n - 1), [0, 2]]
+    ej = np.r_[np.arange(1, n), [n // 2, n - 2]]
+    i_t, j_t = torch.from_numpy(ei), torch.from_numpy(ej)
+    meas6 = P.log_se3(*P.relative(R[i_t], t[i_t], R[j_t], t[j_t])).numpy()
+    meas6 = meas6 + rng.normal(0, 0.02, meas6.shape).astype(np.float32) * (ej - ei == 1)[:, None]
+    meas7 = pg.srt_to_sim7(*P.relative_sim3(s[i_t], R[i_t], t[i_t], s[j_t], R[j_t], t[j_t]))
+    init7 = pg.srt_to_sim7(s, R, t).numpy().copy()
+    init7[1:, 3:6] += rng.normal(0, 0.01, (n - 1, 3)).astype(np.float32)
+    init7[:, 6] = 0.0
+    init6 = gt6.numpy().copy()
+    init6[1:] += rng.normal(0, 0.05, (n - 1, 6)).astype(np.float32)
+    edges = [ei.astype(np.int32), ej.astype(np.int32)]
+    w = np.ones(len(ei), np.float32)
+    assert len(ei) % DIST_RANKS == 1
+    return {"se3": [init6] + edges + [meas6.astype(np.float32), w],
+            "sim3": [init7] + edges + [meas7.numpy(), w],
+            "sim3_cg": [init7] + edges + [meas7.numpy(), w]}
+
+
+PG_ITERS = 8
+
+
+def pose_graph_fns():
+    from siftgpu_tpu_torch.optim import pose_graph as pg
+    from siftgpu_tpu_torch.parallel import dist_pose_graph as dpg
+
+    return {"se3": (pg.PoseGraph, dpg.optimize_pose_graph_distributed, pg.optimize_pose_graph),
+            "sim3": (pg.Sim3PoseGraph, dpg.optimize_pose_graph_sim3_distributed,
+                     pg.optimize_pose_graph_sim3),
+            "sim3_cg": (pg.Sim3PoseGraph, dpg.optimize_pose_graph_sim3_cg_distributed,
+                        pg.optimize_pose_graph_sim3_cg)}
+
+
+class CollectiveClock:
+    """Counts and host-times every all_reduce / all_gather of this process
+    (gloo with CUDA tensors stages through the host and blocks, so the host
+    clock spans each call); `per_solve` records the deltas of each
+    `ResidentBA.solve`."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        from siftgpu_tpu_torch.parallel import resident_ba
+
+        self.n = {"all_reduce": 0, "all_gather": 0}
+        self.ms = {"all_reduce": 0.0, "all_gather": 0.0}
+        self.per_solve = []     # (all_reduce calls, ms, all_gather calls, ms) per solve
+        self.uploads = []       # (dirty slots uploaded, map capacity) per solve
+        for name in self.n:
+            orig = getattr(dist, name)
+
+            def timed(*a, _orig=orig, _name=name, **kw):
+                t0 = time.perf_counter()
+                out = _orig(*a, **kw)
+                self.ms[_name] += (time.perf_counter() - t0) * 1e3
+                self.n[_name] += 1
+                return out
+
+            setattr(dist, name, timed)
+        solve, upload = resident_ba.ResidentBA.solve, resident_ba.ResidentBA._upload_dirty
+
+        def solve_counted(rb, *a, **kw):
+            before = (self.n["all_reduce"], self.ms["all_reduce"], self.n["all_gather"],
+                      self.ms["all_gather"])
+            out = solve(rb, *a, **kw)
+            after = (self.n["all_reduce"], self.ms["all_reduce"], self.n["all_gather"],
+                     self.ms["all_gather"])
+            self.per_solve.append(tuple(b - a for a, b in zip(before, after)))
+            return out
+
+        def upload_counted(rb, map_X):
+            n = upload(rb, map_X)
+            self.uploads.append((n, map_X.shape[0]))
+            return n
+
+        resident_ba.ResidentBA.solve = solve_counted
+        resident_ba.ResidentBA._upload_dirty = upload_counted
+
+    def reset(self):
+        for name in self.n:
+            self.n[name], self.ms[name] = 0, 0.0
+        self.per_solve, self.uploads = [], []
+
+
+def _slam_summary(res, sec, timings, T):
+    return dict(trajectory=res.trajectory.copy(), keyframes=list(res.keyframe_indices),
+                map_points=res.map_points.copy(), map_mask=res.map_mask.copy(),
+                loop_edges=[(int(e[0]), int(e[1])) for e in res.loop_edges],
+                num_tracked=list(res.num_tracked), sec=sec, fps=T / sec, timings=timings)
+
+
+def dist_rank(job, *, group, device):
+    """Phase 4f in one rank: the units, then SLAM runs A (resident map,
+    counted), B (re-partitioning + global BA) and C (run A checkpointed
+    after frame 12 by rank 0, resumed at 13).  `job` holds the host
+    inputs; returns host results."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from siftgpu_tpu_torch import MatchConfig, SiftConfig
+    from siftgpu_tpu_torch.ops import _build
+    from siftgpu_tpu_torch.oracle import fixtures
+    from siftgpu_tpu_torch.parallel import comm, dist_ba, dp, sequence
+    from siftgpu_tpu_torch.parallel.resident_ba import ResidentBA
+    from siftgpu_tpu_torch.pipeline import checkpoint, slam
+
+    out = {"rank": comm.rank(group), "device": str(device), "t_joined": time.time()}
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    clock = CollectiveClock()
+    # ---- units ----
+    state, cost = dist_ba.run_ba_distributed(job["sprob"], group, iters=8, n_cg=25, device=device)
+    out["ba"] = (state.cams.cpu().numpy(), dist_ba.gather_points(state.points, group).cpu().numpy(),
+                 float(cost))
+    out["pg"] = {}
+    for kind, (cls, dopt, _) in pose_graph_fns().items():
+        g = cls(*(torch.from_numpy(np.array(a)).to(device) for a in job["graphs"][kind]))
+        res, costs = dopt(g, group, iters=PG_ITERS)
+        out["pg"][kind] = (res.poses.cpu().numpy(), costs.cpu().numpy())
+    f = dp.gather_features(dp.extract_features_dp(job["frames4"], job["cfg4"], group, device),
+                           group)
+    out["dp"] = [a.cpu().numpy() for a in f]
+
+    # ---- SLAM ----
+    h, w, k = job["hwk"]
+    frames, gt, intr = slam_loop_scene(fixtures, h, w)
+    T = len(frames)
+    cfg = SiftConfig(height=h, width=w, max_keypoints=k)
+    mcfg = MatchConfig(max_sift=k, max_match=k)
+    scfg = slam_config(slam, w)
+
+    def run(fr=frames, **kw):
+        timings = {}
+        sync()
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        res = sequence.run_slam_distributed(fr, intr, cfg, mcfg, scfg, group, device,
+                                            timings=timings, **kw)
+        sync()
+        return res, time.perf_counter() - t0, timings
+
+    for kern in _build.KERNELS.values():
+        kern.launches = 0
+    clock.reset()
+    res, sec, timings = run()
+    out["launches"] = {name: kern.launches for name, kern in _build.KERNELS.items()}
+    out["A"] = _slam_summary(res, sec, timings, T)
+    out["A"].update(per_solve=list(clock.per_solve), uploads=list(clock.uploads),
+                    collectives=(dict(clock.n), dict(clock.ms)))
+    res, sec, timings = run(resident_map=False, global_ba=True)
+    out["B"] = _slam_summary(res, sec, timings, T)
+
+    # ---- C: run A's state after frame 12 saved by rank 0, resumed at 13 ----
+    tc = SLAM_RESUME_AT
+    seq = sequence.extract_sequence_dp(frames[:tc], cfg, group, device)
+    part = slam.run_slam(frames[:tc], intr, cfg, mcfg, scfg, features=seq,
+                         ba_fn=ResidentBA(group, device),
+                         pg_fn=sequence.make_pg_optimizer(group), device=device)
+    path = os.path.join(job["tmp"], "dist_ckpt.npz")
+    if comm.rank(group) == 0:
+        checkpoint.save_slam_state(path, part, next_frame=tc, kf_window=scfg.kf_window)
+    dist.barrier(group)
+    res, sec, timings = run(resume=checkpoint.load_slam_state(path))
+    out["C"] = _slam_summary(res, sec, timings, T - tc)
+    # a library this rank compiled (rather than loaded) has a build log
+    out["compiled"] = [n for n, kern in _build.KERNELS.items() if kern.build_log is not None]
+    return out
+
+
+def nccl_rank(job, *, group, device):
+    """SLAM run A again, twice, in one rank of an NCCL group: the first run
+    warms the fresh process up (its first extraction, solver and library
+    loads), the second is timed."""
+    import torch
+    import torch.distributed as dist
+
+    from siftgpu_tpu_torch import MatchConfig, SiftConfig
+    from siftgpu_tpu_torch.oracle import fixtures
+    from siftgpu_tpu_torch.parallel import sequence
+    from siftgpu_tpu_torch.pipeline import slam
+
+    h, w, k = job["hwk"]
+    frames, _, intr = slam_loop_scene(fixtures, h, w)
+    cfg = SiftConfig(height=h, width=w, max_keypoints=k)
+    out = {"t_joined": time.time()}
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    for label in ("first", "second"):
+        timings = {}
+        sync()
+        t0 = time.perf_counter()
+        res = sequence.run_slam_distributed(frames, intr, cfg,
+                                            MatchConfig(max_sift=k, max_match=k),
+                                            slam_config(slam, w), group, device, timings=timings)
+        sync()
+        out[label] = _slam_summary(res, time.perf_counter() - t0, timings, len(frames))
+    return dict(backend=dist.get_backend(group), **out)
+
+
+def dist_phase(dev, sync, frames4, feats4, k, slam_ref, h=H, w=W):
+    """Phase 4f: config 5 (`parallel/`) in DIST_RANKS spawned ranks on this
+    card with gloo (CUDA tensors staged through the host), then one NCCL
+    rank.  `frames4` / `feats4`: phase 4's frames and their features;
+    `slam_ref`: phase 4d's first run after the final pass (keyframes,
+    trajectory, frames/s, the ATE bound or None).  Returns rank 0's kernel
+    launches in SLAM run A."""
+    import os
+    import tempfile
+
+    import torch
+
+    from siftgpu_tpu_torch import SiftConfig
+    from siftgpu_tpu_torch.geometry import align
+    from siftgpu_tpu_torch.optim import ba
+    from siftgpu_tpu_torch.oracle import fixtures
+    from siftgpu_tpu_torch.parallel import comm, dist_ba
+
+    log(f"phase 4f: config 5 in {DIST_RANKS} ranks (gloo on {dev}; NCCL in one rank)")
+    cuda = dev.type == "cuda"
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = root if not path else root + os.pathsep + path
+    prob = ba_problem()
+    graphs = circle_graphs()
+    cfg4 = SiftConfig(height=frames4.shape[1], width=frames4.shape[2], max_keypoints=k)
+    if cuda:
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        job = dict(sprob=dist_ba.partition_problem(prob, DIST_RANKS), graphs=graphs,
+                   frames4=frames4, cfg4=cfg4, hwk=(h, w, k), tmp=tmp)
+        t0, t0_wall = time.perf_counter(), time.time()
+        ranks = comm.spawn(dist_rank, DIST_RANKS, "gloo", "cuda" if cuda else "cpu", job,
+                           timeout=DIST_TIMEOUT)
+        wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    log(f"  {DIST_RANKS} ranks on {[r['device'] for r in ranks]}: {wall:.1f} s of wall time; "
+        f"spawn to the group joined (torch import, CUDA start-up, rendezvous): "
+        f"{max(r['t_joined'] for r in ranks) - t0_wall:.2f} s")
+
+    # ---- units ----
+    one = ba.run_ba(prob._replace(**{f: getattr(prob, f).to(dev) for f in prob._fields
+                                     if getattr(prob, f) is not None}), iters=8, n_cg=25)
+    cams, pts, cost = r0["ba"]
+    pts = pts.reshape(-1, 3)[: prob.points.shape[0]]
+    ref_c, ref_p = one.cams.cpu().numpy(), one.points.cpu().numpy()
+    t_ref, t_d = ref_c[1:, 3:].ravel(), cams[1:, 3:].ravel()
+    sc = float(t_d @ t_ref) / max(float(t_d @ t_d), 1e-12)
+    errs = (float(np.abs(cams[:, :3] - ref_c[:, :3]).max()), float(np.abs(t_d * sc - t_ref).max()),
+            float(np.abs(pts * sc - ref_p).max()))
+    log(f"  run_ba_distributed (4 cameras, 64 points, 8 LM x 25 CG): cost {cost:.3g} (one "
+        f"process {float(one.cost):.3g}); rotations {errs[0]:.3g}, translations {errs[1]:.3g}, "
+        f"points {errs[2]:.3g} from one process after the scale gauge ({sc:.6f})")
+    if not (cost < 1e-4 and float(one.cost) < 1e-4 and errs[0] <= 1e-3 and errs[1] <= 1e-3
+            and errs[2] <= 5e-3):
+        raise AssertionError(f"dist BA: cost {cost}, errors {errs}")
+    for kind, (cls, _, opt) in pose_graph_fns().items():
+        g = cls(*(torch.from_numpy(np.array(a)).to(dev) for a in graphs[kind]))
+        o, oc = opt(g, iters=PG_ITERS)
+        poses, costs = r0["pg"][kind]
+        dp_ = float(np.abs(poses - o.poses.cpu().numpy()).max())
+        log(f"  {kind} pose graph ({graphs[kind][1].shape[0]} edges): poses {dp_:.3g} from one "
+            f"process, final cost {costs[-1]:.3g} / {float(oc[-1]):.3g}")
+        if not dp_ <= 1e-4:
+            raise AssertionError(f"dist pose graph {kind}: poses {dp_} from one process")
+    same = all(np.array_equal(a.cpu().numpy(), b) for a, b in zip(feats4, r0["dp"]))
+    log(f"  extract_features_dp ({len(frames4)} frames, {len(frames4) // DIST_RANKS} a rank): "
+        f"bit-identical to phase 4's extraction: {same}")
+    if not same:
+        raise AssertionError("extract_features_dp differs from phase 4's extraction")
+
+    # ---- SLAM runs ----
+    _, gt, _ = slam_loop_scene(fixtures, h, w)
+    span = loop_span(align, gt)
+    bound = slam_ref.get("bound")
+    A = r0["A"]
+    for r in ranks[1:]:
+        for run_ in ("A", "B", "C"):
+            a, b = r0[run_], r[run_]
+            if not (a["keyframes"] == b["keyframes"] and np.array_equal(a["trajectory"],
+                                                                        b["trajectory"])
+                    and np.array_equal(a["map_points"], b["map_points"])):
+                raise AssertionError(f"SLAM run {run_}: rank {r['rank']} differs from rank 0")
+    log(f"  SLAM runs A, B, C: every rank bit-identical (trajectory, map, keyframes); libraries "
+        f"the ranks compiled: {[r['compiled'] for r in ranks]}")
+    if any(r["compiled"] for r in ranks):
+        raise AssertionError("a rank compiled a library instead of loading the parent's")
+    for r in ranks:
+        for run_ in ("A", "B", "C"):
+            x = r[run_]
+            log(f"  rank {r['rank']} run {run_}: {x['sec']:.3f} s, {x['fps']:.2f} frames/s "
+                f"(phase 4d {slam_ref['fps']:.2f}); stages (host ms, mean/max): "
+                f"{stage_summary(x['timings'])}")
+        ps = np.asarray(r["A"]["per_solve"], np.float64).reshape(-1, 4)
+        n_ar, ms_ar = r["A"]["collectives"]
+        log(f"  rank {r['rank']} run A: {len(ps)} windowed BAs, all_reduce per BA "
+            f"{ps[:, 0].mean() if len(ps) else 0:.1f} calls / {ps[:, 1].mean() if len(ps) else 0:.3f}"
+            f" ms, all_gather per BA {ps[:, 2].mean() if len(ps) else 0:.1f} / "
+            f"{ps[:, 3].mean() if len(ps) else 0:.3f} ms (gloo, host-staged); whole run "
+            f"{n_ar} calls, {ms_ar} ms; launches {r['launches']}")
+    a_A = ate(align, A["trajectory"], gt)
+    a_B = ate(align, r0["B"]["trajectory"], gt)
+    d_ref = float(np.abs(A["trajectory"] - slam_ref["trajectory"]).max())
+    log(f"  run A: keyframes {A['keyframes']} (phase 4d {slam_ref['keyframes']}), loop edges "
+        f"{A['loop_edges']}, trajectory {d_ref:.3g} from phase 4d's run after the final pass; "
+        f"ATE {a_A:.5f} (span {span:.4f}, bound {bound})")
+    log(f"  run B (re-partitioning, global BA): keyframes {r0['B']['keyframes']}, ATE {a_B:.5f}")
+    if A["keyframes"] != slam_ref["keyframes"] or not d_ref <= 1e-3:
+        raise AssertionError(f"SLAM run A: keyframes {A['keyframes']}, trajectory {d_ref} from 4d")
+    if bound is not None and not (a_A <= bound and a_B <= bound and A["loop_edges"]):
+        raise AssertionError(f"SLAM runs A/B: ATE {a_A} / {a_B} (bound {bound}), loop edges "
+                             f"{A['loop_edges']}")
+    if r0["B"]["keyframes"] != A["keyframes"]:
+        raise AssertionError(f"SLAM run B: keyframes {r0['B']['keyframes']}")
+    if cuda:
+        for r in ranks:
+            missing = [n for n in MAIN_KERNELS if r["launches"][n] == 0]
+            if missing:
+                raise AssertionError(f"rank {r['rank']}: run A did not launch {missing}")
+    ups = A["uploads"]
+    log(f"  run A dirty-slot uploads per windowed BA (capacity {ups[0][1] if ups else '-'}): "
+        f"{[n for n, _ in ups]}")
+    if len(ups) < 2 or not max(n for n, _ in ups[1:]) < ups[0][1] // 2:
+        raise AssertionError(f"run A: uploads {ups}")
+    C = r0["C"]
+    d_c = float(np.abs(C["trajectory"] - A["trajectory"]).max())
+    log(f"  run C (checkpoint after frame {SLAM_RESUME_AT - 1}, resumed at {SLAM_RESUME_AT}): "
+        f"keyframes {C['keyframes']}, trajectory {d_c:.3g} from run A")
+    if C["keyframes"] != A["keyframes"] or not d_c <= 1e-4:
+        raise AssertionError(f"SLAM run C: keyframes {C['keyframes']}, trajectory {d_c}")
+
+    # ---- NCCL, one rank ----
+    if cuda:
+        torch.cuda.empty_cache()
+        t0, t0_wall = time.perf_counter(), time.time()
+        (nc,) = comm.spawn(nccl_rank, 1, "nccl", "cuda", dict(hwk=(h, w, k)),
+                           timeout=DIST_TIMEOUT)
+        log(f"  {nc['backend']} rank (world size 1): {time.perf_counter() - t0:.1f} s of wall "
+            f"time, {nc['t_joined'] - t0_wall:.2f} s from spawn to the group joined")
+        for label in ("first", "second"):
+            x = nc[label]
+            d_n = float(np.abs(x["trajectory"] - A["trajectory"]).max())
+            log(f"    {label} run: {x['fps']:.2f} frames/s; keyframes {x['keyframes']}, trajectory "
+                f"{d_n:.3g} from run A; stages (host ms, mean/max): {stage_summary(x['timings'])}")
+            if x["keyframes"] != A["keyframes"] or not d_n <= 1e-4:
+                raise AssertionError(f"NCCL {label} run: keyframes {x['keyframes']}, "
+                                     f"trajectory {d_n}")
+    else:
+        log("  NCCL rank: not run on the CPU")
+    return r0["launches"]
+
+
+def dist_alone(device: str, h=H, w=W, k=K):
+    """Phase 4f without the phases before it: phase 4's frames and their
+    extraction, and for 4d's reference one process's `run_slam` + the
+    end-of-run pass on the loop scene (the CPU rehearses the control flow
+    at a small size; with a CUDA device build the kernels first)."""
+    import torch
+
+    from siftgpu_tpu_torch import MatchConfig, SiftConfig, extract_features
+    from siftgpu_tpu_torch.geometry import align
+    from siftgpu_tpu_torch.oracle import fixtures
+    from siftgpu_tpu_torch.pipeline import slam
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    frames = make_frames(h, w)
+    feats = extract_features(torch.from_numpy(frames).to(dev), SiftConfig(height=h, width=w,
+                                                                          max_keypoints=k))
+    loop, gt, intr = slam_loop_scene(fixtures, h, w)
+    t0 = time.perf_counter()
+    res = slam.run_slam(loop, intr, SiftConfig(height=h, width=w, max_keypoints=k),
+                        MatchConfig(max_sift=k, max_match=k), slam_config(slam, w), device=dev)
+    sync()
+    fps = len(loop) / (time.perf_counter() - t0)
+    final_pass(res, intr, dev)
+    ref = SLAM_REF if (h, w, k) == (H, W, K) else None
+    bound = None if ref is None else max(1.5 * ref["ate"], 0.02 * ref["span"])
+    log(f"one process: keyframes {res.keyframe_indices}, {fps:.2f} frames/s, ATE "
+        f"{ate(align, res.trajectory, gt):.5f}")
+    return dist_phase(dev, sync, frames, feats, k, dict(keyframes=list(res.keyframe_indices),
+                                                         fps=fps, bound=bound,
+                                                         trajectory=res.trajectory.copy()), h, w)
 
 
 def run(device: str, h=H, w=W, b=B, k=K):
@@ -1904,13 +2374,16 @@ def run(device: str, h=H, w=W, b=B, k=K):
 
     # ---- 4d. the SLAM path, counted; last, since its profiled run leaves
     # later torch.profiler sessions without the hand kernels' device time ----
-    slam_launches = slam_phase(dev, sync, par, h, w, k)
+    slam_launches, slam_ref = slam_phase(dev, sync, par, h, w, k)
 
     # ---- 4e. the command line and the feature server, counted ----
     cli_launches = cli_phase(dev, sync, frames, k)
+
+    # ---- 4f. config 5 in two ranks, counted in each ----
+    dist_launches = dist_phase(dev, sync, frames, feats, k, slam_ref, h, w)
     for rec in records:
         rec.update(slam_launches=slam_launches[rec["name"]], cli_launches=cli_launches[rec["name"]],
-                   max_abs_err=par.err[rec["name"]])
+                   dist_launches=dist_launches[rec["name"]], max_abs_err=par.err[rec["name"]])
     return records
 
 

@@ -58,15 +58,20 @@ _TAPS_CACHE: dict = {}
 
 def blur_separable(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     """Separable Gaussian blur of [B, H, W] f32 with replicate edges: the
-    columns (W) first, then the rows (H), as the reference's conv route."""
+    columns (W) first, then the rows (H), as the reference's conv route.
+    Each image is convolved alone, so an image's result does not depend on
+    the batch it came in (a batched convolution may pick another algorithm,
+    and round otherwise, for another batch size: oneDNN on the CPU does)."""
     t = torch.as_tensor(np.asarray(taps, np.float32), device=x.device)
     r = (t.shape[0] - 1) // 2
+    out = []
     with full_f32():
-        y = F.conv2d(F.pad(x[:, None], (r, r, 0, 0), mode="replicate"),
-                     t.view(1, 1, 1, -1))
-        y = F.conv2d(F.pad(y, (0, 0, r, r), mode="replicate"),
-                     t.view(1, 1, -1, 1))
-    return y[:, 0]
+        for xi in x:
+            y = F.conv2d(F.pad(xi[None, None], (r, r, 0, 0), mode="replicate"),
+                         t.view(1, 1, 1, -1))
+            out.append(F.conv2d(F.pad(y, (0, 0, r, r), mode="replicate"),
+                                t.view(1, 1, -1, 1))[:, 0])
+    return torch.cat(out)
 
 
 def blur_octave_fused_plain(base: torch.Tensor, taps_list):

@@ -11,8 +11,14 @@ Differences from the reference:
   - the Jacobians are closed form (d(R X)/dw = -[R X]x J_l(w), J_l the left
     Jacobian of SO(3)) instead of `jax.jacfwd`; they follow the same
     branches (R = I + [w]x below theta = 1e-8, the depth clamp at 1e-9);
-  - the reference's `psum_axis` hook (observations sharded over devices)
-    waits for the port of `parallel/` on `torch.distributed`;
+  - the reference's `psum_axis` hook is `group=` (a `torch.distributed`
+    process group): each rank holds its own block of points and their
+    observations, the cameras are replicated, and the five camera-side
+    sums the reference `psum`s (bc, Hcc, S's camera sum, the reduced
+    right-hand side, the cost) are sum-all-reduced over the group
+    (`all_reduce_sum`); the point-side sums stay local.  The loop counts
+    are fixed and accept/reject is a `torch.where` on the reduced cost, so
+    every rank makes the same collective calls in the same order;
   - every contraction runs with TF32 off (`full_f32`), the reference's
     "highest";
   - the segment sums add each segment's rows in their original order
@@ -32,8 +38,19 @@ from ..geometry.pose import _so3_left_jacobian, exp_so3, hat
 
 __all__ = [
     "BAProblem", "BAState", "Segments", "project", "reprojection_residuals", "schur_solve",
-    "run_ba", "refine_points",
+    "run_ba", "refine_points", "all_reduce_sum",
 ]
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """x summed over the ranks of `group` (a `torch.distributed` process
+    group, each rank holding its own partial sums) into a new tensor; x
+    itself when `group` is None."""
+    if group is None:
+        return x
+    out = x.clone()
+    torch.distributed.all_reduce(out, group=group)
+    return out
 
 
 class BAProblem(NamedTuple):
@@ -87,9 +104,9 @@ def reprojection_residuals(prob: BAProblem, cams, points) -> torch.Tensor:
     return (_pixels(xc, prob.intrinsics) - prob.uv) * torch.sqrt(prob.w)[:, None]
 
 
-def _cost(prob, cams, points):
+def _cost(prob, cams, points, group=None):
     r = reprojection_residuals(prob, cams, points)
-    return (r * r).sum()
+    return all_reduce_sum((r * r).sum(), group)
 
 
 def _proj_jacobian(xc, intr):
@@ -174,22 +191,25 @@ def _nonzero(x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def schur_solve(r, Jc, Jp, cam_idx, pt_idx, M: int, P: int, lam, gauge_mask,
-                n_cg: int = 30, pt_fixed: Optional[torch.Tensor] = None, segments=None):
+                n_cg: int = 30, pt_fixed: Optional[torch.Tensor] = None, segments=None,
+                group=None):
     """Solve the damped normal equations via Schur complement + PCG.
     Returns (dcam [M, 6], dpt [P, 3]).  `gauge_mask` [M] zeroes frozen
     cameras.  `segments`: the (camera, point) `Segments` of cam_idx and
-    pt_idx, made here when not given."""
+    pt_idx, made here when not given.  `group`: the camera-side sums are
+    all-reduced over it (points and observations are this rank's block)."""
     ci, pi = cam_idx.long(), pt_idx.long()
+    red = lambda x: all_reduce_sum(x, group)
     sc, sp = segments or (Segments.of(ci, M), Segments.of(pi, P))
     ein = torch.einsum
     with full_f32():
         # gradient blocks
-        bc = _segment_sum(-ein("nij,ni->nj", Jc, r), sc)               # [M, 6]
+        bc = red(_segment_sum(-ein("nij,ni->nj", Jc, r), sc))          # [M, 6]
         bp = _segment_sum(-ein("nij,ni->nj", Jp, r), sp)               # [P, 3]
         # block diagonals (damped)
         eye6 = torch.eye(6, dtype=r.dtype, device=r.device)
         eye3 = torch.eye(3, dtype=r.dtype, device=r.device)
-        Hcc = _segment_sum(ein("nij,nik->njk", Jc, Jc), sc) + lam * eye6
+        Hcc = red(_segment_sum(ein("nij,nik->njk", Jc, Jc), sc)) + lam * eye6
         Hpp = _segment_sum(ein("nij,nik->njk", Jp, Jp), sp) + lam * eye3
         Hpp_inv = _inv3(Hpp)
         if pt_fixed is not None:
@@ -203,13 +223,13 @@ def schur_solve(r, Jc, Jp, cam_idx, pt_idx, M: int, P: int, lam, gauge_mask,
             v = _segment_sum(ein("nij,ni->nj", Jp, u), sp)             # [P, 3]
             y = ein("pij,pj->pi", Hpp_inv, v)
             wv = ein("nij,nj->ni", Jp, y[pi])
-            out = _segment_sum(ein("nij,ni->nj", Jc, u - wv), sc)
+            out = red(_segment_sum(ein("nij,ni->nj", Jc, u - wv), sc))
             return (out + lam * x) * gm
 
         # reduced RHS: bc - W Hpp^-1 bp
         yb = ein("pij,pj->pi", Hpp_inv, bp)
         wb = ein("nij,nj->ni", Jp, yb[pi])
-        rhs = (bc - _segment_sum(ein("nij,ni->nj", Jc, wb), sc)) * gm
+        rhs = (bc - red(_segment_sum(ein("nij,ni->nj", Jc, wb), sc))) * gm
 
         # PCG with a block-Jacobi (6x6 Hcc) preconditioner; inv_ex does not
         # check the (damped, SPD) blocks on the host, so nothing synchronises
@@ -240,9 +260,13 @@ def schur_solve(r, Jc, Jp, cam_idx, pt_idx, M: int, P: int, lam, gauge_mask,
 
 
 def run_ba(prob: BAProblem, iters: int = 10, n_cg: int = 30,
-           fix_first_cam: bool = True, lam0: float = 1e-3) -> BAState:
+           fix_first_cam: bool = True, lam0: float = 1e-3, group=None) -> BAState:
     """LM loop with multiplicative accept/reject damping, `iters` steps of
-    `n_cg` CG iterations each; the decisions stay on the device."""
+    `n_cg` CG iterations each; the decisions stay on the device.  With
+    `group` the problem is this rank's block (its points and their
+    observations, all the cameras): the camera-side sums and the cost are
+    all-reduced, so every rank takes the same steps and ends with the same
+    cameras and cost, and its own refined points."""
     M, P = prob.cams.shape[0], prob.points.shape[0]
     dev, dt = prob.cams.device, prob.cams.dtype
     gauge = torch.ones(M, dtype=dt, device=dev)
@@ -251,14 +275,15 @@ def run_ba(prob: BAProblem, iters: int = 10, n_cg: int = 30,
     segments = (Segments.of(prob.cam_idx, M), Segments.of(prob.pt_idx, P))
     state = BAState(cams=prob.cams, points=prob.points,
                     lam=torch.tensor(lam0, dtype=torch.float32, device=dev),
-                    cost=_cost(prob, prob.cams, prob.points))
+                    cost=_cost(prob, prob.cams, prob.points, group))
     for _ in range(iters):
         r, Jc, Jp = _jacobians(prob, state.cams, state.points)
         dcam, dpt = schur_solve(r, Jc, Jp, prob.cam_idx, prob.pt_idx, M, P, state.lam,
-                                gauge, n_cg, pt_fixed=prob.pt_fixed, segments=segments)
+                                gauge, n_cg, pt_fixed=prob.pt_fixed, segments=segments,
+                                group=group)
         new_cams = state.cams + dcam
         new_pts = state.points + dpt
-        new_cost = _cost(prob, new_cams, new_pts)
+        new_cost = _cost(prob, new_cams, new_pts, group)
         accept = new_cost < state.cost
         lam = torch.where(accept, state.lam * 0.3, state.lam * 4.0)
         state = BAState(

@@ -18,8 +18,11 @@ Differences from the reference:
     give the same bits; the dense systems are solved by
     `torch.linalg.solve_ex` and the preconditioner blocks inverted by
     `inv_ex`, which do not check on the host: nothing synchronises;
-  - the reference's `psum_axis` hooks (edges sharded over devices) wait for
-    the port of `parallel/` on `torch.distributed`;
+  - the reference's `psum_axis` hooks are `group=` (a `torch.distributed`
+    process group; each rank holds its own slice of the edges, the poses
+    are replicated): the dense solvers all-reduce H and b, the PCG solver
+    every O(M) vector ([M, 7] per CG step) and the [M, 7, 7] diagonal
+    blocks, and all three the costs (`ba.all_reduce_sum`);
   - contractions run with TF32 off (`full_f32`).
 """
 
@@ -32,7 +35,7 @@ from torch.func import jvp
 
 from ..core.precision import full_f32
 from ..geometry import pose as P
-from .ba import Segments, _segment_sum
+from .ba import Segments, _segment_sum, all_reduce_sum
 
 __all__ = [
     "PoseGraph", "optimize_pose_graph",
@@ -95,18 +98,18 @@ class _Blocks(NamedTuple):
         return cls(Segments.of(pair, M * M), Segments.of(ei, M), Segments.of(ej, M))
 
 
-def _dense_step(r, Ji, Jj, blocks: _Blocks, M, D, lam, n_fix):
-    """Dense damped normal equations, the first `n_fix` nodes frozen;
-    returns dx [M, D]."""
+def _dense_step(r, Ji, Jj, blocks: _Blocks, M, D, lam, n_fix, group=None):
+    """Dense damped normal equations, the first `n_fix` nodes frozen, H and
+    b summed over `group`; returns dx [M, D]."""
     ein = torch.einsum
     with full_f32():
         ii = ein("eab,eac->ebc", Ji, Ji)
         jj = ein("eab,eac->ebc", Jj, Jj)
         ij = ein("eab,eac->ebc", Ji, Jj)
         Hb = _segment_sum(torch.cat([ii, jj, ij, ij.transpose(-1, -2)]), blocks.pair)
-        H = Hb.view(M, M, D, D).permute(0, 2, 1, 3).reshape(M * D, M * D)
-        b = (_segment_sum(-ein("eab,ea->eb", Ji, r), blocks.ei)
-             + _segment_sum(-ein("eab,ea->eb", Jj, r), blocks.ej))
+        H = all_reduce_sum(Hb.view(M, M, D, D).permute(0, 2, 1, 3).reshape(M * D, M * D), group)
+        b = all_reduce_sum(_segment_sum(-ein("eab,ea->eb", Ji, r), blocks.ei)
+                           + _segment_sum(-ein("eab,ea->eb", Jj, r), blocks.ej), group)
     Hf = H + lam * torch.eye(M * D, dtype=H.dtype, device=H.device)
     bf = b.reshape(M * D)
     if n_fix > 0:
@@ -119,8 +122,10 @@ def _dense_step(r, Ji, Jj, blocks: _Blocks, M, D, lam, n_fix):
 
 
 def optimize_pose_graph(g: PoseGraph, iters: int = 10, lam: float = 1e-5,
-                        fix_first: bool = True) -> Tuple[PoseGraph, torch.Tensor]:
-    """SE(3) Gauss-Newton; returns (graph with optimized poses, costs [iters])."""
+                        fix_first: bool = True, group=None) -> Tuple[PoseGraph, torch.Tensor]:
+    """SE(3) Gauss-Newton; returns (graph with optimized poses, costs [iters]).
+    `group`: the edges are this rank's slice, H, b and the costs are summed
+    over the group's ranks."""
     M = g.poses.shape[0]
     ei, ej = g.edge_i.long(), g.edge_j.long()
     blocks = _Blocks.of(ei, ej, M)
@@ -130,11 +135,11 @@ def optimize_pose_graph(g: PoseGraph, iters: int = 10, lam: float = 1e-5,
     for _ in range(iters):
         r, Ji, Jj = _linearize(_edge_residual_local, 6, (R[ei], t[ei]), (R[ej], t[ej]),
                                (Rm, tm), g.weight)
-        dx = _dense_step(r, Ji, Jj, blocks, M, 6, lam, 1 if fix_first else 0)
+        dx = _dense_step(r, Ji, Jj, blocks, M, 6, lam, 1 if fix_first else 0, group)
         dR, dt = P.exp_se3(dx)
         R, t = P.compose(dR, dt, R, t)
         costs.append((r * r).sum())
-    return g._replace(poses=P.log_se3(R, t)), torch.stack(costs)
+    return g._replace(poses=P.log_se3(R, t)), all_reduce_sum(torch.stack(costs), group)
 
 
 # ---------------- Sim(3) pose graph (monocular loop closure) ----------------
@@ -178,12 +183,13 @@ def _sim3_linearize(g: Sim3PoseGraph, s, R, t):
 
 
 def optimize_pose_graph_sim3(g: Sim3PoseGraph, iters: int = 10, lam: float = 1e-5,
-                             fix_first: bool = True,
-                             n_fix: int = 1) -> Tuple[Sim3PoseGraph, torch.Tensor]:
+                             fix_first: bool = True, n_fix: int = 1,
+                             group=None) -> Tuple[Sim3PoseGraph, torch.Tensor]:
     """Gauss-Newton over (pose, scale) per node, dense normal equations.
     `n_fix` freezes the FIRST n nodes (pose and scale): 1 is the gauge
     anchor, larger values the online loop-correction policy
-    (`fix_first=False` forces 0).  Returns (graph, costs [iters])."""
+    (`fix_first=False` forces 0).  `group` as in `optimize_pose_graph`.
+    Returns (graph, costs [iters])."""
     M = g.poses.shape[0]
     if not fix_first:
         n_fix = 0
@@ -192,10 +198,10 @@ def optimize_pose_graph_sim3(g: Sim3PoseGraph, iters: int = 10, lam: float = 1e-
     costs = []
     for _ in range(iters):
         r, Ji, Jj = _sim3_linearize(g, s, R, t)
-        dx = _dense_step(r, Ji, Jj, blocks, M, 7, lam, n_fix)
+        dx = _dense_step(r, Ji, Jj, blocks, M, 7, lam, n_fix, group)
         s, R, t = P.compose_sim3(*sim7_to_srt(dx), s, R, t)
         costs.append((r * r).sum())
-    return g._replace(poses=srt_to_sim7(s, R, t)), torch.stack(costs)
+    return g._replace(poses=srt_to_sim7(s, R, t)), all_reduce_sum(torch.stack(costs), group)
 
 
 # ------------- scalable Sim(3) pose graph (block-sparse GN + PCG) -----------
@@ -204,11 +210,13 @@ def optimize_pose_graph_sim3(g: Sim3PoseGraph, iters: int = 10, lam: float = 1e-
 
 
 def optimize_pose_graph_sim3_cg(g: Sim3PoseGraph, iters: int = 10, lam: float = 1e-5,
-                                fix_first: bool = True, n_cg: int = 60,
-                                n_fix: int = 1) -> Tuple[Sim3PoseGraph, torch.Tensor]:
+                                fix_first: bool = True, n_cg: int = 60, n_fix: int = 1,
+                                group=None) -> Tuple[Sim3PoseGraph, torch.Tensor]:
     """Matrix-free Gauss-Newton: block-sparse H, PCG with 7x7 block-Jacobi.
     Same measurement model and chart as `optimize_pose_graph_sim3`; O(E *
-    n_cg) per iteration instead of O(M^3)."""
+    n_cg) per iteration instead of O(M^3).  `group`: the edges are this
+    rank's slice; b, the diagonal blocks, each H @ x and the costs are
+    summed over the group's ranks, never a dense H."""
     M, D = g.poses.shape[0], 7
     if not fix_first:
         n_fix = 0
@@ -220,7 +228,7 @@ def optimize_pose_graph_sim3_cg(g: Sim3PoseGraph, iters: int = 10, lam: float = 
     ein = torch.einsum
 
     def seg2(a, b):
-        return _segment_sum(a, blocks.ei) + _segment_sum(b, blocks.ej)
+        return all_reduce_sum(_segment_sum(a, blocks.ei) + _segment_sum(b, blocks.ej), group)
 
     def nonzero(x):
         return torch.where(x.abs() < 1e-20, torch.full_like(x, 1e-20), x)
@@ -258,4 +266,4 @@ def optimize_pose_graph_sim3_cg(g: Sim3PoseGraph, iters: int = 10, lam: float = 
                 rz = rz_new
         s, R, t = P.compose_sim3(*sim7_to_srt(x * gm), s, R, t)
         costs.append((r * r).sum())
-    return g._replace(poses=srt_to_sim7(s, R, t)), torch.stack(costs)
+    return g._replace(poses=srt_to_sim7(s, R, t)), all_reduce_sum(torch.stack(costs), group)

@@ -35,11 +35,9 @@ Differences from the reference:
   - PnP, triangulation, BA, the pose graph and the Sim(3) algebra run with
     TF32 off (`full_f32`, inside those modules): the loop's gates are pixel
     thresholds;
-  - the resident-BA protocol (`ba_fn.resident`) and
-    `parallel.sequence.SequenceFeatures` wait for the port of `parallel/`:
-    a resident `ba_fn` raises `NotImplementedError`; `features=` takes any
-    object with `frame_feats(t)` (a `Features` of batch 1 on the device)
-    and host `x`, `y`, `mask` [T, K];
+  - `features=` takes any object with `frame_feats(t)` (desc [1, K, 128]
+    and mask [1, K] on the device) and host `x`, `y`, `mask` [T, K], as
+    `parallel.sequence.SequenceFeatures` is;
   - `timings=` (a dict) collects host milliseconds per stage; each stage
     ends in a pull of its results, so the host clock spans its device work.
 """
@@ -482,7 +480,14 @@ def run_slam(frames, intr, cfg, mcfg, scfg: SlamConfig,
     `features`: pre-extracted features (`frame_feats(t)` -> device Features
     of batch 1; host `x`, `y`, `mask` [T, K]) — the loop then only matches.
     `ba_fn`: optional (BAProblem, iters, n_cg) -> BAState override of the
-    windowed BA (a resident solver raises `NotImplementedError`).
+    windowed BA (e.g. `parallel.sequence.make_distributed_ba`), or a solver
+    of the resident protocol (`ba_fn.resident` true, e.g.
+    `parallel.resident_ba.ResidentBA`) that keeps the map's points on its
+    devices: the loop binds the intrinsics once (`set_intrinsics`), then
+    per window calls `solve(poses [W, 6], obs_c, obs_p, obs_uv, fixed [M],
+    map_X, ba_iters, ba_cg)` -> (poses, cost), which writes the refined
+    free points into the host `map_X` in place; the full map is not
+    uploaded.
     `metrics`: a `pipeline.metrics.MetricsLogger` (JSONL events).
     `checkpoint_path`: after every keyframe's windowed BA the state is
     written atomically to this path (process 0 only).
@@ -494,8 +499,6 @@ def run_slam(frames, intr, cfg, mcfg, scfg: SlamConfig,
     loop, correction, checkpoint)."""
     dev = torch.device(device)
     _require(dev)
-    if ba_fn is not None and getattr(ba_fn, "resident", False):
-        raise NotImplementedError("a resident BA solver waits for the port of parallel/")
     metrics = metrics_mod.or_null(metrics)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -620,18 +623,29 @@ def run_slam(frames, intr, cfg, mcfg, scfg: SlamConfig,
         # observations of them constrain the cameras but cannot drag
         # established geometry toward the recent window
         base = len(keyframes) - len(win)
-        cams, pts, uv = _upload(dev, np.stack([k.pose for k in win]), map_X, np.stack(obs_uv))
-        ci_t, pi_t = _upload(dev, np.asarray(obs_c), np.asarray(obs_p), dtype=torch.int32)
-        (fixed,) = _upload(dev, map_anchor < base, dtype=torch.bool)
-        prob = ba.BAProblem(
-            cams=cams, points=pts, intrinsics=intr_t, cam_idx=ci_t, pt_idx=pi_t, uv=uv,
-            w=torch.ones(len(obs_c), dtype=torch.float32, device=dev), pt_fixed=fixed,
-        )
-        if ba_fn is not None:  # e.g. a distributed Schur solve
-            state = ba_fn(prob, scfg.ba_iters, scfg.ba_cg)
+        poses = np.stack([k.pose for k in win])
+        if ba_fn is not None and getattr(ba_fn, "resident", False):
+            # the solver owns the map's points on its devices: only the
+            # observation lists and the host-changed slots travel, and the
+            # window's free points come back into map_X in place
+            if not getattr(ba_fn, "_intr_bound", False):
+                ba_fn.set_intrinsics(np.asarray(intr, np.float32))
+                ba_fn._intr_bound = True
+            new_cams, cost = ba_fn.solve(poses, obs_c, obs_p, np.stack(obs_uv), map_anchor < base,
+                                         map_X, scfg.ba_iters, scfg.ba_cg)
         else:
-            state = ba.run_ba(prob, iters=scfg.ba_iters, n_cg=scfg.ba_cg)
-        new_cams, map_X, cost = _pull(state.cams, state.points, state.cost)
+            cams, pts, uv = _upload(dev, poses, map_X, np.stack(obs_uv))
+            ci_t, pi_t = _upload(dev, np.asarray(obs_c), np.asarray(obs_p), dtype=torch.int32)
+            (fixed,) = _upload(dev, map_anchor < base, dtype=torch.bool)
+            prob = ba.BAProblem(
+                cams=cams, points=pts, intrinsics=intr_t, cam_idx=ci_t, pt_idx=pi_t, uv=uv,
+                w=torch.ones(len(obs_c), dtype=torch.float32, device=dev), pt_fixed=fixed,
+            )
+            if ba_fn is not None:  # e.g. a distributed Schur solve
+                state = ba_fn(prob, scfg.ba_iters, scfg.ba_cg)
+            else:
+                state = ba.run_ba(prob, iters=scfg.ba_iters, n_cg=scfg.ba_cg)
+            new_cams, map_X, cost = _pull(state.cams, state.points, state.cost)
         for ci, k in enumerate(win):
             k.pose = new_cams[ci]
             traj[k.frame_idx] = new_cams[ci]

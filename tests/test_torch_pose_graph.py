@@ -8,8 +8,8 @@ their Jacobians by forward-mode autodiff through the same maps, so they
 differ only in rounding) and costs within 1e-4 relative (or 1e-9 absolute
 once converged).  The port also meets test_pose_graph.py's own asserts.
 `umeyama` / `ate_rmse` are NumPy copies: bit-equal; `camera_centers`
-within 1e-6.  The reference's distributed-parity case waits for the port of
-`parallel/`."""
+within 1e-6.  The reference's distributed-parity cases are
+tests/test_torch_dist_pose_graph.py's."""
 
 import jax.numpy as jnp
 import numpy as np

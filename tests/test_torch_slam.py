@@ -14,7 +14,9 @@ CPU at the reference tests' size (144x192).
   ground-truth bounds.
 - The metrics stream carries the reference's event kinds in its order
   (tests/test_metrics.py's scene, T = 8, on the reference's features).
-- `run_slam(device="cuda")` without a card raises; a resident BA raises.
+- `run_slam(device="cuda")` without a card raises.
+- A solver of the resident protocol (`ba_fn.resident`) receives the
+  reference's `set_intrinsics` and `solve` arguments.
 """
 
 import dataclasses
@@ -219,10 +221,49 @@ def test_cuda_without_a_card_raises(monkeypatch):
         slam.refit_map_points([], np.zeros((4, 3), np.float32), np.zeros(4, bool), INTR)
 
 
-def test_resident_ba_raises():
-    class Resident:
-        resident = True
+class ResidentStub:
+    """A solver of the resident protocol that records what the loop gives
+    it and moves nothing."""
+    resident = True
 
-    with pytest.raises(NotImplementedError):
-        slam.run_slam(np.zeros((2, 32, 32), np.float32), INTR, SiftConfig(height=32, width=32),
-                      MatchConfig(), slam.SlamConfig(), ba_fn=Resident(), device="cpu")
+    def __init__(self):
+        self.intr, self.calls, self.maps = [], [], []
+
+    def set_intrinsics(self, intr):
+        self.intr.append(np.array(intr))
+
+    def solve(self, cams, obs_c, obs_p, obs_uv, fixed, map_X, iters, n_cg):
+        self.calls.append([np.array(a) for a in (cams, obs_c, obs_p, obs_uv, fixed, map_X)]
+                          + [iters, n_cg])
+        self.maps.append(map_X)
+        return np.array(cams, np.float32), 0.0
+
+
+def test_resident_ba_receives_reference_arguments(draws_patch):
+    """Both loops on the reference's features and draws, each with the
+    stub as `ba_fn`: the intrinsics bound once; every window's observation
+    lists, fixed slots, step counts, window size and map slots in use equal
+    the reference's, and the map is the loop's own host array (a resident
+    solver writes into it in place).  The poses and points themselves are
+    the bootstrap's, before any BA: there the two frameworks' f32 RANSAC
+    differs (0.025 in a translation here), which BA removes
+    (`test_backend_parity_on_reference_features`)."""
+    frames, _ = _sequence(8, jfixtures)
+    feats = extract_features_jit(jnp.asarray(frames), JConfig(height=H, width=W, max_keypoints=768))
+    ref, port = ResidentStub(), ResidentStub()
+    jslam.run_slam(frames, INTR, JConfig(height=H, width=W, max_keypoints=768),
+                   JMatch(max_match=768), jslam.SlamConfig(**SCFG), features=RefFeatures(feats),
+                   ba_fn=ref)
+    with draws_patch():
+        res = slam.run_slam(frames, INTR, SiftConfig(height=H, width=W, max_keypoints=768),
+                            MatchConfig(max_match=768), slam.SlamConfig(**SCFG),
+                            features=PortFeatures(feats), ba_fn=port, device="cpu")
+    assert len(port.intr) == len(ref.intr) == 1
+    np.testing.assert_allclose(port.intr[0], ref.intr[0])
+    assert len(port.calls) == len(ref.calls) >= 1
+    for got, want in zip(port.calls, ref.calls):
+        for i in (1, 2, 3, 4, 6, 7):
+            np.testing.assert_array_equal(got[i], want[i])
+        assert got[0].shape == want[0].shape and got[5].shape == want[5].shape
+        np.testing.assert_array_equal(got[5].any(1), want[5].any(1))
+    assert all(m is res.map_points for m in port.maps)
