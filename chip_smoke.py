@@ -17,7 +17,9 @@ CG steps of BA; and the SLAM loop — `run_slam` over a 24-frame sequence
 resume, relocalization after a blackout); and the command line and the
 feature server — `python -m siftgpu_tpu_torch {extract,match,dump,twoview,
 slam,speed,serve}`; and config 5 — `parallel.sequence.run_slam_distributed`
-in two ranks.  It checks them:
+in two ranks; and config 3 — `parallel.spatial.extract_features_spatial` on
+a 1088x1920 and a 2160x3840 frame split into row slabs over two ranks, and
+`parallel.dryrun.run_dryrun(2)`.  It checks them:
 
   1. device: a CUDA card is required (exit 1 otherwise); prints
      `nvidia-smi --query-gpu=name,power.limit` ;
@@ -43,7 +45,10 @@ in two ranks.  It checks them:
      W < 8, the window padding (Wp odd, Wp a multiple of 8), columns across
      warps and blocks and a base that is not 16-byte aligned; and
      sample_gradients with skipped keypoints (plane -1) among live ones and
-     on a 9 x 9 grid;
+     on a 9 x 9 grid; kernels 1-3 with a spatial slab's arguments (owned
+     rows that cut 16 x 64 tiles, lo = 0 / hi = H; a negative y0, global_h
+     inside the slab, a slab reaching the image's bottom; window rows and
+     samples off both image edges);
   4. main path: launch counters reset to 0, one extract + match, every
      main-path kernel must have launched; >= 90% known-shift inliers per
      pair; frame 0 on the CPU must pair >= 99% of its keypoints with the
@@ -125,6 +130,20 @@ in two ranks.  It checks them:
      The ranks must compile nothing.  Frames/s and host ms per stage per
      rank, all-reduce and all-gather calls and host ms per windowed BA,
      the time from the spawn to the group joined;
+  4g. config 3 (after 4f): one process's `extract_features` of
+     bench.py:139-141's 1088x1920 frame (K = 4096) and :171-172's 2160x3840
+     (K = 8192), then `extract_features_spatial` of each in 2 spawned
+     gloo ranks on this card (halo 96): in each rank a warm-up call, a
+     call counted (launch counters reset just before it: kernels 1-3 once
+     per octave, the octave kernel once per gathered octave) with the halo
+     all-gather's bytes and host ms per octave, and timed calls (CUDA
+     events); both ranks' Features bit-identical, and against one process
+     tests/test_parallel.py:40-63's bounds (equal counts, sorted (x, y,
+     sigma, theta) within 5e-3, descriptors within 2 steps; the largest
+     difference and whether bit-identical are printed); every kernel 1-3
+     call of a 1088x1920 slab extraction in each rank against its plain
+     version; one NCCL rank (world size 1) on the 1088x1920 frame under the
+     same bounds; `run_dryrun(2)` in gloo ranks (its own ATE bound);
   5. times: extract and match per batch, the facade calls, the whole
      pyramid with the octave kernel and with the cuDNN chain, the two-view
      stages (CUDA events); each kernel against its plain version and, where
@@ -137,7 +156,8 @@ Any failed check raises, a failed rank included.  The last three lines
 are the card's name and power limit, one JSON object with a record per
 kernel (`slam_launches`: its launches in phase 4d's first run;
 `cli_launches`: in phase 4e; `dist_launches`: rank 0's in phase 4f's run
-A), and `{"ok": true, "device": {...}}`.  Imports nothing of JAX.
+A; `spatial_launches`: rank 0's in phase 4g's counted calls of both
+frames), and `{"ok": true, "device": {...}}`.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -353,15 +373,17 @@ class Parity:
         if timed:
             self.calls.setdefault(name, []).append(Call(kern, plain, lib, work))
 
-    def detect(self, dog, timed=True):
+    def detect(self, dog, timed=True, owned_rows=None):
+        """detect_scores on dog [B, S+2, H, W] (candidates kept to a slab's
+        rows `owned_rows=(lo, hi)` where given)."""
         import torch
 
         from siftgpu_tpu_torch import bounds
         from siftgpu_tpu_torch.ops import detect_scores as ds
 
-        got = ds.detect_scores(dog, self.cfg)
+        got = ds.detect_scores(dog, self.cfg, owned_rows)
         self.sync()
-        ref = ds.detect_scores_plain(dog, self.cfg)
+        ref = ds.detect_scores_plain(dog, self.cfg, owned_rows)
         for k in (0, 1):  # score planes: bit-identical
             if not torch_equal_bits(got[k], ref[k]):
                 raise AssertionError(f"detect_scores: score plane {k} differs from the plain version")
@@ -373,32 +395,36 @@ class Parity:
                 raise AssertionError(f"detect_scores: record off by {int(ulp.max())} ulp")
             err = max(err, float((g - r).abs().max()))
         B, L, Hd, Wd = dog.shape
-        self.note("detect_scores", err, lambda: ds.detect_scores(dog, self.cfg),
-                  lambda: ds.detect_scores_plain(dog, self.cfg),
+        self.note("detect_scores", err, lambda: ds.detect_scores(dog, self.cfg, owned_rows),
+                  lambda: ds.detect_scores_plain(dog, self.cfg, owned_rows),
                   bounds.detect_scores_work(B, L - 2, Hd, Wd), timed=timed)
 
-    def grad(self, gauss, pad=None, label="", timed=True):
+    def grad(self, gauss, pad=None, label="", timed=True, slab=(None, None)):
         """grad_stencil on gauss [B, S+3, H, W], padded to the orientation
-        window (or to `pad` = (min_h, min_w))."""
+        window (or to `pad` = (min_h, min_w)), with a slab's (y0, global_h)
+        where given."""
         from siftgpu_tpu_torch import bounds
         from siftgpu_tpu_torch.ops import grad_stencil as gs
 
         win = 2 * self.cfg.orient_window_radius + 1
         mh, mw = pad or (win, win)
         S = gauss.shape[1] - 3
-        got = gs.grad_stencil(gauss, S, mh, mw)
+        got = gs.grad_stencil(gauss, S, mh, mw, *slab)
         self.sync()
-        ref = gs.grad_stencil_plain(gauss, S, mh, mw)
+        ref = gs.grad_stencil_plain(gauss, S, mh, mw, *slab)
         for g, r in zip(got, ref):
             if not torch_equal_bits(g, r):
                 raise AssertionError(f"grad_stencil {label}: differs from the plain version")
-        lib = lambda: grad_library(gauss, S, mh, mw)
-        for g, r in zip(lib(), ref):   # the yardstick computes the same function
-            if not torch_equal_bits(g, r):
-                raise AssertionError(f"grad_stencil {label}: torch.gradient differs from the plain version")
+        lib = None
+        if slab == (None, None):    # the yardstick has no slab factor
+            lib = lambda: grad_library(gauss, S, mh, mw)
+            for g, r in zip(lib(), ref):   # it computes the same function
+                if not torch_equal_bits(g, r):
+                    raise AssertionError(f"grad_stencil {label}: torch.gradient differs from the "
+                                         "plain version")
         B, _, Hg, Wg = gauss.shape
-        self.note("grad_stencil", 0.0, lambda: gs.grad_stencil(gauss, S, mh, mw),
-                  lambda: gs.grad_stencil_plain(gauss, S, mh, mw),
+        self.note("grad_stencil", 0.0, lambda: gs.grad_stencil(gauss, S, mh, mw, *slab),
+                  lambda: gs.grad_stencil_plain(gauss, S, mh, mw, *slab),
                   bounds.grad_stencil_work(B, S, Hg, Wg, max(Hg, mh), max(Wg, mw)), lib, timed)
 
     def orient(self, grads, kp, timed=True):
@@ -412,9 +438,10 @@ class Parity:
             (b_idx * S + (kp.grad_level - 1)).reshape(-1).contiguous(),
             kp.y.reshape(-1).contiguous(), kp.x.reshape(-1).contiguous(),
             kp.sigma.reshape(-1).contiguous(), self.cfg, kp.mask.reshape(-1).contiguous(),
-            grads.h, grads.w,
+            grads.image_h, grads.w, grads.y0,
         )
-        self.orient_args(args, f"{Bk}x{Kk} keypoints on {Hp}x{Wp}", timed)
+        where = f", slab y0 {grads.y0}, image rows {grads.image_h}" if grads.y0 else ""
+        self.orient_args(args, f"{Bk}x{Kk} keypoints on {Hp}x{Wp}{where}", timed)
 
     def orient_args(self, args, label, timed=True, exact=False):
         """orient_sample against its plain version on `args` within the
@@ -891,6 +918,39 @@ def edge_cases(dev, sync):
         log(f"  grad_stencil (edge: {label}, {shape} -> pad {pad}, rows {plan['rows']}, threads "
             f"{plan['threads']}, grid {plan['grid']}, vector "
             f"{plan['vector'] and label != 'unaligned base'}): bit-identical")
+
+
+def slab_edge_cases(dev, sync):
+    """Kernels 1-3 with a spatial slab's arguments against their plain
+    versions, on the first octave of a 97x131 pair: detect_scores with owned
+    rows that cut 16 x 64 tiles, lo = 0 / hi = H, a one-row band and the
+    bottom rows; grad_stencil with a negative y0, global_h inside the slab,
+    a slab reaching the image's bottom (its one-sided edge row doubled) and
+    both image edges inside; orient_sample on every placement's stack, the
+    (-20, 70) one pushing windows and samples off both image edges."""
+    import torch
+
+    from siftgpu_tpu_torch import SiftConfig
+    from siftgpu_tpu_torch.frontend import detect, orient, pyramid
+    from siftgpu_tpu_torch.oracle import fixtures
+
+    h, w = 97, 131
+    cfg = SiftConfig(height=h, width=w, max_keypoints=256)
+    imgs = np.stack([fixtures.random_texture(h, w, seed=s) for s in (1, 2)])
+    oc = pyramid.build_pyramid(torch.from_numpy(imgs).to(dev), cfg)[0]
+    par = Parity(cfg, sync)
+    owned = ((5, 37), (17, 80), (0, h), (60, h), (40, 41))
+    for rows in owned:
+        par.detect(oc.dog, timed=False, owned_rows=rows)
+    kp = detect.detect_octave(oc, cfg, 128)
+    places = ((-3, h + 10), (5, h - 2), (7, h + 7), (-20, 70))
+    for y0, gh in places:
+        par.grad(oc.gauss, label=f"edge: slab y0 {y0}, image rows {gh}", timed=False,
+                 slab=(y0, gh))
+        par.orient(orient.gradient_stack(oc.gauss, cfg, y0, gh), kp, timed=False)
+    log(f"  slab arguments: detect_scores bit-identical with owned rows {list(owned)}, "
+        f"grad_stencil bit-identical at (y0, global_h) {list(places)}, orient_sample within "
+        "its budget")
 
 
 def shared_buffer_replay(sampled, sync) -> None:
@@ -1795,6 +1855,17 @@ DIST_RANKS = 2
 DIST_TIMEOUT = 600          # seconds a collective may wait before its rank fails
 
 
+def ranks_import_this_module() -> None:
+    """Put this script's directory on PYTHONPATH (once), so that spawned
+    ranks can import their targets from it."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.environ.get("PYTHONPATH", "")
+    if root not in path.split(os.pathsep):
+        os.environ["PYTHONPATH"] = root if not path else root + os.pathsep + path
+
+
 def ba_problem(n_cams=4, n_pts=64, seed=7, perturb=0.05):
     """tests/test_ba.py's `_make_problem` in NumPy: noise-free observations
     of n_pts points by n_cams cameras, cameras 1.. and the points
@@ -2045,7 +2116,6 @@ def dist_phase(dev, sync, frames4, feats4, k, slam_ref, h=H, w=W):
     `slam_ref`: phase 4d's first run after the final pass (keyframes,
     trajectory, frames/s, the ATE bound or None).  Returns rank 0's kernel
     launches in SLAM run A."""
-    import os
     import tempfile
 
     import torch
@@ -2058,9 +2128,7 @@ def dist_phase(dev, sync, frames4, feats4, k, slam_ref, h=H, w=W):
 
     log(f"phase 4f: config 5 in {DIST_RANKS} ranks (gloo on {dev}; NCCL in one rank)")
     cuda = dev.type == "cuda"
-    root = os.path.dirname(os.path.abspath(__file__))
-    path = os.environ.get("PYTHONPATH")
-    os.environ["PYTHONPATH"] = root if not path else root + os.pathsep + path
+    ranks_import_this_module()
     prob = ba_problem()
     graphs = circle_graphs()
     cfg4 = SiftConfig(height=frames4.shape[1], width=frames4.shape[2], max_keypoints=k)
@@ -2223,6 +2291,247 @@ def dist_alone(device: str, h=H, w=W, k=K):
                                                          trajectory=res.trajectory.copy()), h, w)
 
 
+# ---------------- phase 4g: config 3 (row slabs) in two ranks ----------------
+
+# bench.py:139-141 and :171-172: one 1088x1920 frame at K = 4096 and one
+# 2160x3840 frame at K = 8192, random_texture(seed, smooth=3)
+SPATIAL_CASES = (("1088x1920", 1088, 1920, 4096, 7), ("2160x3840", 2160, 3840, 8192, 9))
+SPATIAL_ITERS = 5           # timed calls per case, after a warm-up call
+SPATIAL_KERNELS = ("detect_scores", "grad_stencil", "orient_sample")
+
+
+def spatial_frame(h: int, w: int, seed: int) -> np.ndarray:
+    from siftgpu_tpu_torch.oracle import fixtures
+
+    return fixtures.random_texture(h, w, seed=seed, smooth=3)[None].astype(np.float32)
+
+
+def record_calls(targets):
+    """{key: (module, name)} -> (calls {key: [(args, kwargs)]}, restore()):
+    every call of module.name is recorded, keywords included, and run."""
+    calls, saved = {key: [] for key in targets}, []
+    for key, (mod, name) in targets.items():
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def rec(*a, _key=key, _fn=fn, **kw):
+            calls[_key].append((a, kw))
+            return _fn(*a, **kw)
+
+        setattr(mod, name, rec)
+    return calls, lambda: [setattr(m, n, f) for m, n, f in saved]
+
+
+def slab_parity(run, cfg, sync, label):
+    """Kernels 1-3's calls in one spatial extraction (`run`), recorded, each
+    against its plain version on the card (Parity): the slab octaves with
+    their owned rows, y0 and global_h, the gathered octaves without.
+    Returns the largest error per kernel."""
+    from siftgpu_tpu_torch.frontend import detect as fdetect
+    from siftgpu_tpu_torch.frontend import orient as forient
+    from siftgpu_tpu_torch.ops import kp_engine
+
+    calls, restore = record_calls({"detect": (fdetect, "detect_scores"),
+                                   "grad": (forient, "grad_stencil"),
+                                   "orient": (kp_engine, "orient_sample")})
+    try:
+        run()
+    finally:
+        restore()
+    par = Parity(cfg, sync)
+    for (dog, _, owned), _ in calls["detect"]:
+        par.detect(dog, timed=False, owned_rows=owned)
+    for (gauss, _), kw in calls["grad"]:
+        par.grad(gauss, (kw["min_h"], kw["min_w"]), label, timed=False,
+                 slab=(kw["y0"], kw["global_h"]))
+    for args, _ in calls["orient"]:
+        live = int(args[7].sum())
+        par.orient_args(args, f"{label}, {live} kp on {tuple(args[0].shape)}, y0g "
+                        f"{args[10]}, image rows {args[8]}", timed=False)
+    return dict(par.err)
+
+
+def spatial_rank(job, *, group, device):
+    """Phase 4g in one rank, per case: a warm-up call, one counted call
+    (launch counters reset just before it, per-octave halo stats), the
+    timed calls (CUDA events); then kernels 1-3's calls of a case-0 call
+    against their plain versions (`job["parity"]`)."""
+    import torch
+    import torch.distributed as dist
+
+    from siftgpu_tpu_torch import SiftConfig
+    from siftgpu_tpu_torch.ops import _build
+    from siftgpu_tpu_torch.parallel import comm, spatial
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {"rank": comm.rank(group), "device": str(device), "cases": {}}
+    runs = {}
+    for label, h, w, k, seed in job["cases"]:
+        cfg = SiftConfig(height=h, width=w, max_keypoints=k)
+        frame = torch.from_numpy(spatial_frame(h, w, seed)).to(device)
+        run = lambda stats=None, _f=frame, _c=cfg: spatial.extract_features_spatial(
+            _f, _c, group, device, stats=stats)
+        runs[label] = (run, cfg)
+        run()
+        sync()
+        for kern in _build.KERNELS.values():
+            kern.launches = 0
+        stats = []
+        f = run(stats)
+        sync()
+        launches = {name: kern.launches for name, kern in _build.KERNELS.items()}
+        dist.barrier(group)
+        ms = time_ms(run, sync, job["iters"]) if cuda else None
+        out["cases"][label] = dict(feats=[a.cpu().numpy() for a in f], stats=stats,
+                                   launches=launches, ms=ms, octaves=cfg.octaves)
+    if job["parity"]:
+        label = job["cases"][0][0]
+        out["err"] = slab_parity(runs[label][0], runs[label][1], sync,
+                                 f"rank {out['rank']} {label}")
+    return out
+
+
+def sorted_rows(feats):
+    """(x, y, sigma, theta) of the valid keypoints of frame 0 and their
+    descriptors, in lexicographic order (tests/test_parallel.py:52-63)."""
+    m = feats[7][0]
+    a = np.stack([feats[i][0][m] for i in range(4)], axis=1)
+    order = np.lexsort((a[:, 3], a[:, 1], a[:, 0]))
+    return a[order], feats[6][0][m][order].astype(int)
+
+
+def spatial_against_one(one, got, label):
+    """tests/test_parallel.py:40-63's gates, spatial `got` against one
+    process's `one` (NumPy Features fields): equal counts > 50, sorted (x,
+    y, sigma, theta) within 5e-3, descriptors within 2 steps.  Returns
+    (count, largest position/scale/angle difference, largest descriptor
+    step, bit-identical as sorted lists, bit-identical as buffers)."""
+    n1, n2 = int(one[7].sum()), int(got[7].sum())
+    if not n1 == n2 > 50:
+        raise AssertionError(f"{label}: {n2} keypoints on row slabs, {n1} in one process")
+    ra, da = sorted_rows(one)
+    rb, db = sorted_rows(got)
+    dpos, ddesc = float(np.abs(ra - rb).max()), int(np.abs(da - db).max())
+    same = np.array_equal(ra, rb) and np.array_equal(da, db)
+    whole = all(np.array_equal(a, b) for a, b in zip(one, got))
+    log(f"  {label}: {n2} keypoints, equal counts; largest (x, y, sigma, theta) difference "
+        f"{dpos:.3g}, descriptors {ddesc} steps; bit-identical: {same} as sorted lists, "
+        f"{whole} as buffers (order included)")
+    if not (dpos <= 5e-3 and ddesc <= 2):
+        raise AssertionError(f"{label}: differences {dpos} / {ddesc} steps")
+    return n2, dpos, ddesc, same, whole
+
+
+def spatial_phase(dev, sync, cases=SPATIAL_CASES, iters=SPATIAL_ITERS):
+    """Phase 4g: config 3 (`parallel/spatial.py`) in 2 spawned gloo ranks on
+    this card, each case against one process's `extract_features` of the
+    same frame; then one NCCL rank on case 0, and `run_dryrun(2)` in gloo
+    ranks.  Returns rank 0's launches per kernel, summed over its counted
+    calls of the cases."""
+    import torch
+
+    from siftgpu_tpu_torch import SiftConfig, extract_features
+    from siftgpu_tpu_torch.parallel import comm, dryrun, spatial
+
+    cuda = dev.type == "cuda"
+    log(f"phase 4g: config 3 (row slabs, halo 96) in 2 ranks (gloo on {dev}; NCCL in one "
+        "rank); then run_dryrun(2)")
+    ranks_import_this_module()
+    ones = {}
+    for label, h, w, k, seed in cases:
+        cfg = SiftConfig(height=h, width=w, max_keypoints=k)
+        frame = torch.from_numpy(spatial_frame(h, w, seed)).to(dev)
+        f = extract_features(frame, cfg)
+        sync()
+        ms = time_ms(lambda: extract_features(frame, cfg), sync, iters) if cuda else None
+        ones[label] = ([a.cpu().numpy() for a in f], ms)
+        plan = spatial.plan_octaves(h // 2, cfg.octaves)
+        log(f"  {label} (K = {k}): one process {int(f.count[0])} keypoints"
+            + (f", {ms:.3f} ms per frame" if cuda else "") + f"; plan over 2 ranks {plan}")
+        del frame, f
+    if cuda:
+        torch.cuda.empty_cache()
+    job = dict(cases=cases, iters=iters, parity=True)
+    t0 = time.perf_counter()
+    ranks = comm.spawn(spatial_rank, 2, "gloo", "cuda" if cuda else "cpu", job,
+                       timeout=DIST_TIMEOUT)
+    log(f"  2 ranks on {[r['device'] for r in ranks]}: {time.perf_counter() - t0:.1f} s of wall "
+        "time")
+    total = {}
+    for label, h, w, k, seed in cases:
+        a, b = (r["cases"][label] for r in ranks)
+        if not all(np.array_equal(x, y) for x, y in zip(a["feats"], b["feats"])):
+            raise AssertionError(f"{label}: rank 1's Features differ from rank 0's")
+        log(f"  {label}: both ranks' Features bit-identical")
+        spatial_against_one(ones[label][0], a["feats"], f"{label} on 2 row slabs")
+        for r in ranks:
+            c = r["cases"][label]
+            for st in c["stats"]:
+                log(f"    rank {r['rank']} octave {st['octave']} ({st['mode']}, {st['rows']} rows "
+                    f"a rank, halo {st['halo']}): {st['calls']} all-gather, "
+                    f"{st['bytes_sent']} B sent, {st['bytes_gathered']} B gathered, "
+                    f"{st['ms']:.3f} ms")
+            n_slab = sum(st["mode"] == "spatial" for st in c["stats"])
+            n_gath = c["octaves"] - n_slab        # the octave kernel builds these
+            kl = {n: c["launches"][n] for n in SPATIAL_KERNELS + ("blur_octave_fused",)}
+            log(f"    rank {r['rank']}: launches {kl} ({c['octaves']} octaves, {n_slab} on slabs)"
+                + (f"; {c['ms']:.3f} ms per frame against {ones[label][1]:.3f} in one process"
+                   if cuda else ""))
+            if cuda and not (all(kl[n] == c["octaves"] for n in SPATIAL_KERNELS)
+                             and kl["blur_octave_fused"] == n_gath):
+                raise AssertionError(f"{label}, rank {r['rank']}: launches {kl}")
+        for name, n in a["launches"].items():
+            total[name] = total.get(name, 0) + n
+    for r in ranks:
+        log(f"  rank {r['rank']}: kernels 1-3 on the slab calls of {cases[0][0]} against their "
+            f"plain versions: largest errors {r['err']}")
+
+    # ---- NCCL, one rank (world size 1), case 0 ----
+    if cuda:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        (nc,) = comm.spawn(spatial_rank, 1, "nccl", "cuda",
+                           dict(cases=cases[:1], iters=iters, parity=False), timeout=DIST_TIMEOUT)
+        label = cases[0][0]
+        c = nc["cases"][label]
+        log(f"  NCCL rank (world size 1), {label}: {time.perf_counter() - t0:.1f} s of wall time, "
+            f"{c['ms']:.3f} ms per frame")
+        spatial_against_one(ones[label][0], c["feats"], f"{label} on one NCCL rank")
+    else:
+        log("  NCCL rank: not run on the CPU")
+
+    # ---- the dry run over every leg of parallel/ ----
+    t0 = time.perf_counter()
+    dr = dryrun.run_dryrun(2, "cuda" if cuda else "cpu", "gloo", timeout=DIST_TIMEOUT)
+    for r in dr:
+        log(f"  run_dryrun(2), rank {r['rank']}: dp keypoints {r['dp_count']}, spatial "
+            f"{r.get('spatial_count')}, matches {r['match_count']}, BA cost {r['ba_cost']:.3g}, "
+            f"keyframes {r['keyframes']}, ATE {r['ate']:.4f} (span {r['span']:.4f})")
+    log(f"  run_dryrun(2): {time.perf_counter() - t0:.1f} s of wall time")
+    if dr[0]["spatial_count"] != dr[0]["dp_count"][:2]:
+        raise AssertionError(f"dry run: spatial counts {dr[0]['spatial_count']} against "
+                             f"{dr[0]['dp_count'][:2]}")
+    return total, [r["err"] for r in ranks]
+
+
+def spatial_cases(scale: int = 1):
+    """SPATIAL_CASES with the frames' sizes and K divided by `scale`."""
+    return tuple((f"{h // scale}x{w // scale}", h // scale, w // scale, k // scale, seed)
+                 for _, h, w, k, seed in SPATIAL_CASES)
+
+
+def spatial_alone(device: str, scale: int = 1):
+    """Phase 4g without the phases before it, at the sizes divided by
+    `scale` (the CPU rehearses the control flow at 4).  With a CUDA device
+    build the kernels first."""
+    import torch
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    return spatial_phase(dev, sync, spatial_cases(scale))
+
+
 def run(device: str, h=H, w=W, b=B, k=K):
     """The whole smoke run on `device` (a CUDA device on the chip; the CPU
     only to rehearse the control flow, where both routes are plain)."""
@@ -2274,6 +2583,7 @@ def run(device: str, h=H, w=W, b=B, k=K):
     ones = torch.ones((1, k), dtype=torch.bool, device=dev)
     par.match(rd[:, :k].contiguous(), rd[:, k:].contiguous(), ones, ones, "random", timed=False)
     edge_cases(dev, sync)
+    slab_edge_cases(dev, sync)
 
     # ---- 4. the main path, counted ----
     log("phase 4: main path")
@@ -2381,9 +2691,17 @@ def run(device: str, h=H, w=W, b=B, k=K):
 
     # ---- 4f. config 5 in two ranks, counted in each ----
     dist_launches = dist_phase(dev, sync, frames, feats, k, slam_ref, h, w)
+
+    # ---- 4g. config 3 in two ranks, counted in each ----
+    spatial_launches, spatial_errs = spatial_phase(dev, sync,
+                                                   spatial_cases(1 if dev.type == "cuda" else 4))
+    for err in spatial_errs:
+        for name, e in err.items():
+            par.err[name] = max(par.err[name], e)
     for rec in records:
         rec.update(slam_launches=slam_launches[rec["name"]], cli_launches=cli_launches[rec["name"]],
-                   dist_launches=dist_launches[rec["name"]], max_abs_err=par.err[rec["name"]])
+                   dist_launches=dist_launches[rec["name"]],
+                   spatial_launches=spatial_launches[rec["name"]], max_abs_err=par.err[rec["name"]])
     return records
 
 

@@ -351,7 +351,7 @@ def main() -> int:
     _build.KERNELS.pop(kern_new.name)
     g = torch.rand((1, 4, 8, 8), device="cuda")
     o = torch.empty((2, 1, 3, 8, 8), dtype=torch.bfloat16, device="cuda")
-    largs = (g, o[0], o[1], 1, 4, 3, 8, 8, 8, 8)
+    largs = (g, o[0], o[1], 1, 4, 3, 8, 8, 8, 8, *grad_stencil.factor_rows())
     us = [host_us(k, "grad_stencil_launch", largs, p, sync)
           for k, p in ((kern_old, old_build.ptr), (kern_new, _build.ptr),
                        (kern_new, _build.ptr), (kern_old, old_build.ptr))]

@@ -31,10 +31,11 @@
 //   24 warps an SM) so that one block's stores overlap another's stencil.
 // - The extremum test is taken only at interior pixels, whose 26
 //   neighbours all lie in the image, so the plain version's +-inf padding
-//   never enters it; scores stay interior-only.  It runs only where |v|
-//   passes the pre-threshold, and the edge ratio's division only at
-//   extrema: both are conjuncts of the plain version's test, so skipping
-//   them where an earlier conjunct fails changes no output.
+//   never enters it; scores stay interior-only, and within the rows
+//   ylo..yhi (a spatial slab's owned rows; 1..H-2 otherwise).  It runs
+//   only where |v| passes the pre-threshold, and the edge ratio's division
+//   only at extrema: both are conjuncts of the plain version's test, so
+//   skipping them where an earlier conjunct fails changes no output.
 //
 // Bit parity: this file is compiled with -fmad=false and evaluates every
 // expression in the plain version's order, so records and score planes are
@@ -99,8 +100,8 @@ __global__ void __launch_bounds__(kThreads, 3) detect_scores_kernel(
     const float* __restrict__ dog, float* __restrict__ smax,
     float* __restrict__ smin, float* __restrict__ oval,
     float* __restrict__ ool, float* __restrict__ ooy,
-    float* __restrict__ oox, int S, int H, int W, float thr08, float edge_c,
-    int subpixel, int slices_per_block) {
+    float* __restrict__ oox, int S, int H, int W, int ylo, int yhi, float thr08,
+    float edge_c, int subpixel, int slices_per_block) {
   __shared__ __align__(16) float win[kRing][WR * WP];
   const int He = H + (H & 1), We = W + (W & 1);
   const int groups = S / slices_per_block;
@@ -185,9 +186,10 @@ __global__ void __launch_bounds__(kThreads, 3) detect_scores_kernel(
           ry[py][px] = in ? off_y : 0.0f;
           rx[py][px] = in ? off_x : 0.0f;
 
-          // ---- scores: strict 26-neighbour extremum + tests (interior only) ----
+          // ---- scores: strict 26-neighbour extremum + tests (interior rows
+          // ylo..yhi, within 1..H-2, and interior columns only) ----
           const float av = fabsf(vc);
-          if (yy >= 1 && yy <= H - 2 && xx >= 1 && xx <= W - 2 && av > thr08) {
+          if (yy >= ylo && yy <= yhi && xx >= 1 && xx <= W - 2 && av > thr08) {
             float nmax = -INFINITY, nmin = INFINITY;
 #pragma unroll
             for (int dl = -1; dl <= 1; ++dl)
@@ -236,23 +238,25 @@ __global__ void __launch_bounds__(kThreads, 3) detect_scores_kernel(
 
 // slices_per_block: S (each block walks all slices) or 1 (a block per
 // slice, for planes with few tiles); ops/detect_scores.py::launch_plan.
+// ylo..yhi: the rows that may hold a candidate (1..H-2 for a whole
+// image; a slab's owned rows clipped to that for the spatial path).
 extern "C" int detect_scores_launch(
     const float* dog, float* smax, float* smin, float* val, float* off_l,
-    float* off_y, float* off_x, int B, int S, int H, int W, float thr08,
-    float edge_c, int subpixel, int slices_per_block, cudaStream_t stream) {
+    float* off_y, float* off_x, int B, int S, int H, int W, int ylo, int yhi,
+    float thr08, float edge_c, int subpixel, int slices_per_block, cudaStream_t stream) {
   if (B <= 0 || S <= 0 || H <= 0 || W <= 0 || slices_per_block <= 0 ||
-      S % slices_per_block != 0)
+      S % slices_per_block != 0 || ylo < 1 || yhi > H - 2)
     return cudaErrorInvalidValue;
   const int He = H + (H & 1), We = W + (W & 1);
   const dim3 grid(sift_ceil_div(We, TW), sift_ceil_div(He, TH), B * (S / slices_per_block));
   const bool vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(dog) % 16 == 0;
   if (vec)
     detect_scores_kernel<true><<<grid, kThreads, 0, stream>>>(
-        dog, smax, smin, val, off_l, off_y, off_x, S, H, W, thr08, edge_c, subpixel,
-        slices_per_block);
+        dog, smax, smin, val, off_l, off_y, off_x, S, H, W, ylo, yhi, thr08, edge_c,
+        subpixel, slices_per_block);
   else
     detect_scores_kernel<false><<<grid, kThreads, 0, stream>>>(
-        dog, smax, smin, val, off_l, off_y, off_x, S, H, W, thr08, edge_c, subpixel,
-        slices_per_block);
+        dog, smax, smin, val, off_l, off_y, off_x, S, H, W, ylo, yhi, thr08, edge_c,
+        subpixel, slices_per_block);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,6 +7,10 @@
 //   gx = 0.5 (g[y, x+1] - g[y, x-1]), one-sided and unhalved at x = 0, W-1
 //   gy = 0.5 (g[y+1, x] - g[y-1, x]), one-sided and unhalved at y = 0, H-1
 // zero beyond (H, W) up to (Hp, Wp), rounded to bf16 to nearest even.
+// A spatial slab's rows f0 and f1 (the image's first and last rows, where
+// they fall inside the slab; -1 otherwise) take gy x 2 after the
+// difference: there the slab's central difference is half the image's
+// one-sided one (siftgpu_tpu/ops/grad_stencil.py:86-95).
 //
 // What bounds it on the H100: pure data movement — 4 B read and 2 x 2 B
 // written per pixel, ~3 flops.  The design: a thread owns 8 consecutive x
@@ -60,11 +64,14 @@ __device__ __forceinline__ void load_row(const float* __restrict__ row, int x0, 
 }
 
 // blockDim.x is a multiple of 32, so a warp shares threadIdx.y (its strip)
-// and its lanes hold consecutive column chunks.
-template <bool VEC, int R>
+// and its lanes hold consecutive column chunks.  SLAB: row f0 or f1 lies in
+// the plane (a spatial slab holding an image edge row); without it the
+// kernel is the whole-image one, instruction for instruction.
+template <bool VEC, int R, bool SLAB>
 __global__ void __launch_bounds__(kThreads) grad_stencil_kernel(
     const float* __restrict__ gauss, __nv_bfloat16* __restrict__ gx,
-    __nv_bfloat16* __restrict__ gy, int L, int S, int H, int W, int Hp, int Wp) {
+    __nv_bfloat16* __restrict__ gy, int L, int S, int H, int W, int Hp, int Wp, int f0,
+    int f1) {
   const int y0 = (blockIdx.y * blockDim.y + threadIdx.y) * R;
   if (y0 >= Hp) return;  // the whole warp
   const int x0 = (blockIdx.x * blockDim.x + threadIdx.x) * kCols;
@@ -127,6 +134,7 @@ __global__ void __launch_bounds__(kThreads) grad_stencil_kernel(
         if (y == 0) vy[j] = r[i + 2][j] - c;
         else if (y == H - 1) vy[j] = c - r[i][j];
         else vy[j] = 0.5f * (r[i + 2][j] - r[i][j]);
+        if (SLAB && (y == f0 || y == f1)) vy[j] = vy[j] * 2.0f;
       }
     }
     const int o = y * Wp + x0;
@@ -151,21 +159,35 @@ __global__ void __launch_bounds__(kThreads) grad_stencil_kernel(
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+template <bool VEC, bool SLAB>
+void launch_strips(const dim3& grid, const dim3& block, int rows, cudaStream_t stream,
+                   const float* gauss, __nv_bfloat16* gx, __nv_bfloat16* gy, int L, int S,
+                   int H, int W, int Hp, int Wp, int f0, int f1) {
+  if (rows == kRows)
+    grad_stencil_kernel<VEC, kRows, SLAB><<<grid, block, 0, stream>>>(gauss, gx, gy, L, S, H, W,
+                                                                        Hp, Wp, f0, f1);
+  else
+    grad_stencil_kernel<VEC, 1, SLAB><<<grid, block, 0, stream>>>(gauss, gx, gy, L, S, H, W, Hp,
+                                                                    Wp, f0, f1);
+}
+
 template <bool VEC>
 void launch(const dim3& grid, const dim3& block, int rows, cudaStream_t stream,
             const float* gauss, __nv_bfloat16* gx, __nv_bfloat16* gy, int L, int S, int H,
-            int W, int Hp, int Wp) {
-  if (rows == kRows)
-    grad_stencil_kernel<VEC, kRows><<<grid, block, 0, stream>>>(gauss, gx, gy, L, S, H, W, Hp, Wp);
+            int W, int Hp, int Wp, int f0, int f1) {
+  if ((f0 >= 0 && f0 < H) || (f1 >= 0 && f1 < H))
+    launch_strips<VEC, true>(grid, block, rows, stream, gauss, gx, gy, L, S, H, W, Hp, Wp, f0, f1);
   else
-    grad_stencil_kernel<VEC, 1><<<grid, block, 0, stream>>>(gauss, gx, gy, L, S, H, W, Hp, Wp);
+    launch_strips<VEC, false>(grid, block, rows, stream, gauss, gx, gy, L, S, H, W, Hp, Wp, f0, f1);
 }
 
 }  // namespace
 
+// f0, f1: the rows whose gy is doubled (-1: none); ops/grad_stencil.py
+// derives them from a slab's y0 and global_h.
 extern "C" int grad_stencil_launch(const float* gauss, __nv_bfloat16* gx,
                                    __nv_bfloat16* gy, int B, int L, int S,
-                                   int H, int W, int Hp, int Wp,
+                                   int H, int W, int Hp, int Wp, int f0, int f1,
                                    cudaStream_t stream) {
   if (B * S == 0 || Hp == 0 || Wp == 0) return 0;
   const int chunks = (Wp + kCols - 1) / kCols;
@@ -179,8 +201,8 @@ extern "C" int grad_stencil_launch(const float* gauss, __nv_bfloat16* gx,
   const bool vec = W % kCols == 0 && Wp % kCols == 0 && aligned16(gauss) &&
                    aligned16(gx) && aligned16(gy);
   if (vec)
-    launch<true>(grid, block, rows, stream, gauss, gx, gy, L, S, H, W, Hp, Wp);
+    launch<true>(grid, block, rows, stream, gauss, gx, gy, L, S, H, W, Hp, Wp, f0, f1);
   else
-    launch<false>(grid, block, rows, stream, gauss, gx, gy, L, S, H, W, Hp, Wp);
+    launch<false>(grid, block, rows, stream, gauss, gx, gy, L, S, H, W, Hp, Wp, f0, f1);
   return static_cast<int>(cudaGetLastError());
 }

@@ -78,8 +78,12 @@ __device__ __forceinline__ unsigned ordered(float f) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
+// y0g: the image row of plane row 0 (a spatial slab's offset; 0 for a
+// whole image), global_h: the image's height.  Window rows and samples
+// outside the image's rows are masked, in image rows (y0g = 0, global_h =
+// the plane's true height: the single-image semantics).
 struct Params {
-  int Hp, Wp, h_true, w_true, R, nb, nori, G, N;
+  int Hp, Wp, global_h, w_true, y0g, R, nb, nori, G, N;
   float sig_f, rad_f, peak, spacing, spc_cell, smax, bin_scale, two_pi;
 };
 
@@ -186,7 +190,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) orient_sample_kernel(
       const float r2 = oy * oy + ox * ox;
       float w = exp_window(-r2 / den);
       w = r2 <= rad2 ? w : 0.0f;
-      w = w * (row < P.h_true ? 1.0f : 0.0f);
+      w = w * (row + P.y0g >= 0 && row + P.y0g < P.global_h ? 1.0f : 0.0f);
       const float mag = sqrtf(vx * vx + vy * vy);
       float ang = atan2f(vy, vx);
       if (ang < 0.0f) ang = ang + P.two_pi;
@@ -284,8 +288,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) orient_sample_kernel(
         const int x1 = min(x0 + 1, P.Wp - 1), y1 = min(y0 + 1, P.Hp - 1);
         fxs[u] = fminf(fmaxf(px - static_cast<float>(x0), 0.0f), 1.0f);
         fys[u] = fminf(fmaxf(py - static_cast<float>(y0), 0.0f), 1.0f);
+        const float pyg = py + static_cast<float>(P.y0g);   // the image row, in f32
         const bool inb = (px >= 0.0f) && (px <= static_cast<float>(P.w_true - 1)) &&
-                         (py >= 0.0f) && (py <= static_cast<float>(P.h_true - 1));
+                         (pyg >= 0.0f) && (pyg <= static_cast<float>(P.global_h - 1));
         ms[u] = inb ? 1.0f : 0.0f;
         const size_t i[4] = {static_cast<size_t>(y0) * P.Wp + x0, static_cast<size_t>(y0) * P.Wp + x1,
                              static_cast<size_t>(y1) * P.Wp + x0, static_cast<size_t>(y1) * P.Wp + x1};
@@ -318,7 +323,7 @@ extern "C" int orient_sample_launch(
     const __nv_bfloat16* gx, const __nv_bfloat16* gy, const int* plane,
     const float* ky, const float* kx, const float* sigma, const uint8_t* mask,
     float* theta, uint8_t* haspk, float* sgx, float* sgy, int N, int Hp,
-    int Wp, int h_true, int w_true, int R, int nb, int nori, int G,
+    int Wp, int global_h, int w_true, int y0g, int R, int nb, int nori, int G,
     float sig_f, float rad_f, float peak, float spacing, float spc_cell,
     float smax, float bin_scale, float two_pi, cudaStream_t stream) {
   if (nori > kMaxOri || nori < 1 || nb > kMaxBins || nb < 3 || N <= 0)
@@ -330,7 +335,7 @@ extern "C" int orient_sample_launch(
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  Params P{Hp, Wp, h_true, w_true, R, nb, nori, G, N,
+  Params P{Hp, Wp, global_h, w_true, y0g, R, nb, nori, G, N,
            sig_f, rad_f, peak, spacing, spc_cell, smax, bin_scale, two_pi};
   orient_sample_kernel<<<sift_ceil_div(N, kWarps), kThreads, smem, stream>>>(
       gx, gy, plane, ky, kx, sigma, mask, theta, haspk, sgx, sgy, P);

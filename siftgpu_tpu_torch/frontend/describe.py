@@ -167,7 +167,8 @@ def describe_octaves(grads: Sequence[GradStack], octave, y, x, sigma, theta, gra
     octave: `grads` holds the octaves' gradient stacks, octave [B, K] int
     the keypoint's octave (negative: not sampled), y, x, sigma (octave-local)
     and theta [B, K], grad_level [B, K] in [1, S].  Samples outside the
-    keypoint's octave's true image are zeroed; binning runs in chunks of
+    keypoint's octave's image are zeroed (in image rows: a slab's `y0` and
+    `global_h`, as the reference's in-bounds test); binning runs in chunks of
     `chunk` keypoints to bound the [B, chunk, G, G, NB] intermediate."""
     G = cfg.descriptor_grid
     B, K = y.shape
@@ -175,11 +176,14 @@ def describe_octaves(grads: Sequence[GradStack], octave, y, x, sigma, theta, gra
     py, px = _sample_coords(y, x, sigma, theta, cfg)       # [B, K, G, G]
     h = torch.zeros((B, K), dtype=torch.float32, device=dev)
     w = torch.zeros_like(h)
+    pyg = py                                               # image rows
     for o, g in enumerate(grads):
-        h = torch.where(octave == o, float(g.h), h)
+        h = torch.where(octave == o, float(g.image_h), h)
         w = torch.where(octave == o, float(g.w), w)
+        if g.y0:                                           # a slab's octave
+            pyg = pyg + torch.where(octave == o, float(g.y0), 0.0)[..., None, None]
     h, w = h[..., None, None], w[..., None, None]
-    inb = (px >= 0) & (px <= w - 1) & (py >= 0) & (py <= h - 1)
+    inb = (px >= 0) & (px <= w - 1) & (pyg >= 0) & (pyg <= h - 1)
     pyf = py.reshape(B * K, G * G).contiguous()
     pxf = px.reshape(B * K, G * G).contiguous()
     out = (torch.zeros_like(pyf), torch.zeros_like(pyf))

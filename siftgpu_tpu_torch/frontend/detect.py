@@ -50,12 +50,13 @@ class OctaveWinners(NamedTuple):
 N_REC = 4
 
 
-def _octave_scores(dog: torch.Tensor, cfg: SiftConfig):
-    """Dense scores + lane-pair pooling.  Returns (bscore [B, 2*nb1],
-    records, (Hs, Ws), (nb1, Hs2))."""
+def _octave_scores(dog: torch.Tensor, cfg: SiftConfig, owned_rows=None):
+    """Dense scores + lane-pair pooling; `owned_rows=(lo, hi)` keeps
+    candidates to a spatial slab's rows [lo, hi).  Returns (bscore
+    [B, 2*nb1], records, (Hs, Ws), (nb1, Hs2))."""
     B, L, H, W = dog.shape
     S = L - 2
-    s_max, s_min, r_val, r_ol, r_oy, r_ox = detect_scores(dog, cfg)
+    s_max, s_min, r_val, r_ol, r_oy, r_ox = detect_scores(dog, cfg, owned_rows)
     Hs2, Ws = s_max.shape[-2:]
     Hs = r_val.shape[-2]
     nb1 = S * Hs2 * (Ws // 2)
@@ -124,22 +125,26 @@ def refine_records(rec: torch.Tensor, win: OctaveWinners, cfg: SiftConfig,
                            sigma=sigma, response=resp, mask=mask)
 
 
-def detect_octave(oc: Octave, cfg: SiftConfig, cap: int) -> OctaveKeypoints:
-    """Single-octave detection (see `detect_pyramid`)."""
-    return detect_pyramid((oc,), cfg, caps=[cap])[0]
+def detect_octave(oc: Octave, cfg: SiftConfig, cap: int, owned_rows=None) -> OctaveKeypoints:
+    """Single-octave detection (see `detect_pyramid`); `owned_rows=(lo,
+    hi)` keeps candidates to a spatial slab's rows [lo, hi), so that halo
+    extrema neither take top-k capacity nor count twice across slabs."""
+    return detect_pyramid((oc,), cfg, caps=[cap], owned_rows=[owned_rows])[0]
 
 
-def detect_pyramid(pyr, cfg: SiftConfig, caps=None):
-    """Detection over all octaves with one record gather across octaves.
+def detect_pyramid(pyr, cfg: SiftConfig, caps=None, owned_rows=None):
+    """Detection over all octaves with one record gather across octaves;
+    `owned_rows`: each octave's (lo, hi) or None (default: None for all).
     Returns a list of per-octave `OctaveKeypoints`."""
     caps = caps or [cfg.octave_cap(o) for o in range(len(pyr))]
+    owned_rows = owned_rows or [None] * len(pyr)
     B = pyr[0].dog.shape[0]
     wins, ridxs, flats, dims = [], [], [], []
     off = 0
-    for oc, cap in zip(pyr, caps):
+    for oc, cap, owned in zip(pyr, caps, owned_rows):
         _, L, H, W = oc.dog.shape
         S = L - 2
-        bscore, recs, (Hs, Ws), (nb1, Hs2) = _octave_scores(oc.dog, cfg)
+        bscore, recs, (Hs, Ws), (nb1, Hs2) = _octave_scores(oc.dog, cfg, owned)
         top, bidx = _run_topk(bscore, cap)
         win = _decode_topk(top, bidx, nb1, Hs2, Ws)
         wins.append(win)

@@ -48,13 +48,17 @@ class Features(NamedTuple):
         return torch.stack([self.x, self.y, self.sigma, self.theta], dim=-1)
 
 
-def octave_candidates(oc: pyramid.Octave, cfg: SiftConfig, cap: int, kp=None):
+def octave_candidates(oc: pyramid.Octave, cfg: SiftConfig, cap: int, y0=None, global_h=None,
+                      owned_rows=None, kp=None):
     """Detect (unless `kp` is given) + orient + describe one octave.
-    Returns a dict of [B, cap * max_orientations] octave-local arrays."""
+    Returns a dict of [B, cap * max_orientations] octave-local arrays (y, x
+    relative to the given plane).  A spatial slab passes `y0` (the image row
+    of its row 0), `global_h` (the image's height at this octave) and
+    `owned_rows=(lo, hi)`, the slab rows whose candidates it keeps."""
     B = oc.gauss.shape[0]
     if kp is None:
-        kp = detect.detect_octave(oc, cfg, cap)
-    grads = orient.gradient_stack(oc.gauss, cfg)
+        kp = detect.detect_octave(oc, cfg, cap, owned_rows=owned_rows)
+    grads = orient.gradient_stack(oc.gauss, cfg, y0=y0, global_h=global_h)
     n = cfg.max_orientations
 
     def dup(a):

@@ -37,7 +37,7 @@ def orient_describe_fused(
         grads.gx.reshape(B * S, Hp, Wp), grads.gy.reshape(B * S, Hp, Wp),
         plane.contiguous(), kp.y.reshape(B * K).contiguous(),
         kp.x.reshape(B * K).contiguous(), kp.sigma.reshape(B * K).contiguous(),
-        cfg, kp.mask.reshape(B * K).contiguous(), grads.h, grads.w,
+        cfg, kp.mask.reshape(B * K).contiguous(), grads.image_h, grads.w, grads.y0,
     )
     theta = theta.reshape(B, K, n)
     valid = haspk.reshape(B, K, n) & kp.mask[..., None]

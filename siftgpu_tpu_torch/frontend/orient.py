@@ -1,10 +1,13 @@
 """Gradient stack for orientation assignment and descriptor sampling.
 
-Port of `siftgpu_tpu/frontend/orient.py::gradient_stack` for one chip: the
-stack holds the gradients of Gaussian levels 1..S, zero-padded to at least
-the orientation window, stored as bf16 (round-to-nearest-even).  The top-K
-and orientation budgets of the reference rest on that storage.  The slab
-factor of the spatially sharded path (`y0`, `global_h`) is not ported.
+Port of `siftgpu_tpu/frontend/orient.py::gradient_stack`: the stack holds
+the gradients of Gaussian levels 1..S, zero-padded to at least the
+orientation window, stored as bf16 (round-to-nearest-even).  The top-K and
+orientation budgets of the reference rest on that storage.  A spatial slab
+(`parallel/spatial.py`) gives its place in the image, `y0` (the image row
+of its row 0) and `global_h` (the image's height): the gradient kernel
+doubles gy on the image's edge rows inside the slab, and window rows and
+descriptor samples outside the image are masked in image rows.
 
 The extraction's orientation histogram runs inside the fused orientation +
 sampling kernel (`ops/kp_engine.py`).  `compute_orientations` ports the
@@ -15,7 +18,7 @@ the port calls it.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,18 +32,28 @@ __all__ = ["GradStack", "gradient_stack", "compute_orientations"]
 
 
 class GradStack(NamedTuple):
-    gx: torch.Tensor  # [B, S, Hp, Wp] bf16
-    gy: torch.Tensor  # [B, S, Hp, Wp] bf16
-    h: int            # true (unpadded) height
-    w: int            # true width
+    gx: torch.Tensor                 # [B, S, Hp, Wp] bf16
+    gy: torch.Tensor                 # [B, S, Hp, Wp] bf16
+    h: int                           # true (unpadded) height of the plane (slab)
+    w: int                           # true width
+    y0: int = 0                      # image row of plane row 0 (a slab's; 0 for an image)
+    global_h: Optional[int] = None   # the image's height (None: h)
+
+    @property
+    def image_h(self) -> int:
+        return self.h if self.global_h is None else self.global_h
 
 
-def gradient_stack(gauss: torch.Tensor, cfg: SiftConfig) -> GradStack:
-    """gauss: [B, S+3, H, W] -> central-difference grads of levels 1..S."""
+def gradient_stack(gauss: torch.Tensor, cfg: SiftConfig, y0: Optional[int] = None,
+                   global_h: Optional[int] = None) -> GradStack:
+    """gauss: [B, S+3, H, W] -> central-difference grads of levels 1..S;
+    `y0` and `global_h` place a spatial slab in the image."""
     H, W = gauss.shape[-2:]
     win = 2 * cfg.orient_window_radius + 1
-    gx, gy = grad_stencil(gauss, cfg.dog_levels, min_h=win, min_w=win)
-    return GradStack(gx=gx, gy=gy, h=H, w=W)
+    gx, gy = grad_stencil(gauss, cfg.dog_levels, min_h=win, min_w=win, y0=y0,
+                          global_h=global_h)
+    return GradStack(gx=gx, gy=gy, h=H, w=W, y0=0 if y0 is None else int(y0),
+                     global_h=H if global_h is None else int(global_h))
 
 
 def _hist_onehot(w: torch.Tensor, bins: torch.Tensor, nb: int, chunk: int = 128) -> torch.Tensor:
@@ -93,7 +106,9 @@ def compute_orientations(grads: GradStack, kp: OctaveKeypoints,
     radius = cfg.orientation_radius_factor * sw
     wgt = exp_window(-r2 / (2.0 * (sw * sw))[..., None, None])
     wgt = torch.where(r2 <= (radius * radius)[..., None, None], wgt, 0.0)
-    wgt = wgt * (rows < grads.h).to(torch.float32)[..., :, None]   # rows of the true image
+    grow = rows + grads.y0                                          # image rows
+    row_ok = (grow >= 0) & (grow < grads.image_h)
+    wgt = wgt * row_ok.to(torch.float32)[..., :, None]
 
     mag = torch.sqrt(wx * wx + wy * wy)
     ang = torch.atan2(wy, wx)

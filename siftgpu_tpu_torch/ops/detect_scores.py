@@ -11,9 +11,12 @@ border, and emits
   val, off_l, off_y, off_x  [B, S, He, We]  the Cramer 3x3 subpixel record
 
 with (He, We) = (H, W) rounded up to even and zeros in the padding.
+`owned_rows=(lo, hi)` (a spatial slab's own rows) keeps candidates to rows
+[lo, hi) as well; the records stay dense.
 
-`detect_scores(dog, cfg)` takes the plain version for a CPU tensor and the
-CUDA kernel (`csrc/detect_scores.cu`: one block per frame and 16 x 64 tile,
+`detect_scores(dog, cfg, owned_rows)` takes the plain version for a CPU
+tensor and the CUDA kernel (`csrc/detect_scores.cu`: one block per frame
+and 16 x 64 tile,
 every DoG plane of the tile staged once in shared memory with its halo,
 float2 stores; `launch_plan` states the launch) for a CUDA tensor.  The
 kernel is compiled with -fmad=false and repeats the plain version's
@@ -30,12 +33,13 @@ import torch
 
 from . import _build
 
-__all__ = ["detect_scores", "detect_scores_plain", "cramer_record", "launch_plan", "KERNEL"]
+__all__ = ["detect_scores", "detect_scores_plain", "candidate_rows", "cramer_record", "launch_plan",
+           "KERNEL"]
 
 KERNEL = _build.Kernel(
     "detect_scores", "detect_scores.cu",
     {"detect_scores_launch": [ctypes.c_void_p] * 7
-     + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]},
+     + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]},
     flags=["-fmad=false"],
 )
 
@@ -125,9 +129,18 @@ def _pack_corner(s: torch.Tensor, par: torch.Tensor) -> torch.Tensor:
     return u.view(torch.float32)
 
 
-def detect_scores_plain(dog: torch.Tensor, cfg):
-    """Plain PyTorch version (the reference's `_dense_scores_xla` without
-    slab rows).  dog: [B, S+2, H, W] f32."""
+def candidate_rows(H: int, owned_rows=None) -> tuple:
+    """(ylo, yhi): the rows that may hold a candidate, the interior rows
+    1..H-2 within `owned_rows=(lo, hi)` (default (0, H)), as the
+    reference's kernel takes them (`siftgpu_tpu/ops/detect_scores.py:327-331`)."""
+    lo, hi = owned_rows if owned_rows is not None else (0, H)
+    return max(1, int(lo)), min(H - 2, int(hi) - 1)
+
+
+def detect_scores_plain(dog: torch.Tensor, cfg, owned_rows=None):
+    """Plain PyTorch version (the reference's `_dense_scores_xla`).
+    dog: [B, S+2, H, W] f32; `owned_rows=(lo, hi)` restricts candidates to
+    rows [lo, hi)."""
     B, L, H, W = dog.shape
     S = L - 2
     dog = dog.to(torch.float32)
@@ -164,7 +177,8 @@ def detect_scores_plain(dog: torch.Tensor, cfg):
 
     yy = torch.arange(H, device=dog.device, dtype=torch.int32)[:, None]
     xx = torch.arange(W, device=dog.device, dtype=torch.int32)[None, :]
-    interior = (yy >= 1) & (yy <= H - 2) & (xx >= 1) & (xx <= W - 2)
+    ylo, yhi = candidate_rows(H, owned_rows)
+    interior = (yy >= ylo) & (yy <= yhi) & (xx >= 1) & (xx <= W - 2)
     keep = edge_ok & interior
 
     par = (yy & 1) * 2 + (xx & 1)
@@ -181,7 +195,7 @@ def detect_scores_plain(dog: torch.Tensor, cfg):
     return tuple(pooled) + tuple(planes[2:])
 
 
-def _detect_scores_cuda(dog: torch.Tensor, cfg):
+def _detect_scores_cuda(dog: torch.Tensor, cfg, owned_rows=None):
     _build.check_tensor(dog, "dog", torch.float32, 4)
     B, L, H, W = dog.shape
     S = L - 2
@@ -194,14 +208,17 @@ def _detect_scores_cuda(dog: torch.Tensor, cfg):
     KERNEL.launch(
         "detect_scores_launch", dog.device,
         p(dog), p(half[0]), p(half[1]), p(recs[0]), p(recs[1]), p(recs[2]), p(recs[3]),
-        B, S, H, W, thr08, edge_c, int(bool(cfg.subpixel)), plan["slices_per_block"],
+        B, S, H, W, *candidate_rows(H, owned_rows), thr08, edge_c, int(bool(cfg.subpixel)),
+        plan["slices_per_block"],
     )
     return (half[0], half[1], recs[0], recs[1], recs[2], recs[3])
 
 
-def detect_scores(dog: torch.Tensor, cfg):
-    """dog: [B, S+2, H, W] f32 -> (s_max, s_min, val, off_l, off_y, off_x).
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+def detect_scores(dog: torch.Tensor, cfg, owned_rows=None):
+    """dog: [B, S+2, H, W] f32 -> (s_max, s_min, val, off_l, off_y, off_x);
+    `owned_rows=(lo, hi)` keeps candidates to rows [lo, hi) (default: the
+    whole volume).  CPU tensors take the plain version; CUDA tensors the
+    kernel."""
     if dog.device.type == "cpu":
-        return detect_scores_plain(dog, cfg)
-    return _detect_scores_cuda(dog, cfg)
+        return detect_scores_plain(dog, cfg, owned_rows)
+    return _detect_scores_cuda(dog, cfg, owned_rows)

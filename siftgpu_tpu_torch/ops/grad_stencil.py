@@ -8,8 +8,13 @@ the XLA route of `siftgpu_tpu/frontend/orient.py::gradient_stack`:
 
 over Gaussian levels 1..S, zero beyond (H, W) up to (Hp, Wp) =
 (max(H, min_h), max(W, min_w)), stored as bf16 with round-to-nearest-even.
+A spatial slab passes `y0` (the image row of its row 0, negative above the
+image) and `global_h` (the image's height): after the difference, gy is
+doubled at the rows where y + y0 is 0 or global_h - 1, the image's edge
+rows that lie inside the slab, whose central difference is half the
+one-sided one of the whole image (`siftgpu_tpu/ops/grad_stencil.py:86-95`).
 
-`grad_stencil(gauss, S, min_h, min_w)` takes the plain version for a CPU
+`grad_stencil(gauss, S, min_h, min_w, y0, global_h)` takes the plain version for a CPU
 tensor and the CUDA kernel (`csrc/grad_stencil.cu`, its launch stated by
 `launch_plan`) for a CUDA tensor; the two are bit-identical (one subtraction
 and one exact halving per value).
@@ -23,11 +28,11 @@ import torch
 
 from . import _build
 
-__all__ = ["grad_stencil", "grad_stencil_plain", "launch_plan", "KERNEL"]
+__all__ = ["grad_stencil", "grad_stencil_plain", "factor_rows", "launch_plan", "KERNEL"]
 
 KERNEL = _build.Kernel(
     "grad_stencil", "grad_stencil.cu",
-    {"grad_stencil_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+    {"grad_stencil_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
      + [ctypes.c_void_p]},
 )
 
@@ -58,7 +63,16 @@ def launch_plan(B: int, S: int, H: int, W: int, Hp: int, Wp: int) -> dict:
                 vector=W % COLS == 0 and Wp % COLS == 0)
 
 
-def grad_stencil_plain(gauss: torch.Tensor, S: int, min_h: int, min_w: int):
+def factor_rows(y0=None, global_h=None) -> tuple:
+    """The slab rows whose gy is doubled, (-y0, global_h - 1 - y0), or
+    (-1, -1) (none) without a slab."""
+    if y0 is None or global_h is None:
+        return -1, -1
+    return -int(y0), int(global_h) - 1 - int(y0)
+
+
+def grad_stencil_plain(gauss: torch.Tensor, S: int, min_h: int, min_w: int, y0=None,
+                       global_h=None):
     """gauss: [B, S+3, H, W] f32 -> (gx, gy) [B, S, Hp, Wp] bf16."""
     g = gauss[:, 1 : S + 1].to(torch.float32)
     B, _, H, W = g.shape
@@ -69,13 +83,18 @@ def grad_stencil_plain(gauss: torch.Tensor, S: int, min_h: int, min_w: int):
     gx[:, :, :, -1] = g[:, :, :, -1] - g[:, :, :, -2]
     gy[:, :, 0, :] = g[:, :, 1, :] - g[:, :, 0, :]
     gy[:, :, -1, :] = g[:, :, -1, :] - g[:, :, -2, :]
+    if y0 is not None and global_h is not None:
+        grow = torch.arange(H, device=g.device) + int(y0)
+        factor = torch.where((grow == 0) | (grow == int(global_h) - 1), 2.0, 1.0)
+        gy = gy * factor[:, None]
     ph, pw = max(0, min_h - H), max(0, min_w - W)
     gx = torch.nn.functional.pad(gx, (0, pw, 0, ph))
     gy = torch.nn.functional.pad(gy, (0, pw, 0, ph))
     return gx.to(torch.bfloat16), gy.to(torch.bfloat16)
 
 
-def _grad_stencil_cuda(gauss: torch.Tensor, S: int, min_h: int, min_w: int):
+def _grad_stencil_cuda(gauss: torch.Tensor, S: int, min_h: int, min_w: int, y0=None,
+                       global_h=None):
     _build.check_tensor(gauss, "gauss", torch.float32, 4)
     B, L, H, W = gauss.shape
     if L < S + 1 or H < 2 or W < 2:
@@ -84,13 +103,16 @@ def _grad_stencil_cuda(gauss: torch.Tensor, S: int, min_h: int, min_w: int):
     out = torch.empty((2, B, S, Hp, Wp), dtype=torch.bfloat16, device=gauss.device)
     p = _build.ptr
     KERNEL.launch("grad_stencil_launch", gauss.device,
-                  p(gauss), p(out[0]), p(out[1]), B, L, S, H, W, Hp, Wp)
+                  p(gauss), p(out[0]), p(out[1]), B, L, S, H, W, Hp, Wp,
+                  *factor_rows(y0, global_h))
     return out[0], out[1]
 
 
-def grad_stencil(gauss: torch.Tensor, S: int, min_h: int = 0, min_w: int = 0):
+def grad_stencil(gauss: torch.Tensor, S: int, min_h: int = 0, min_w: int = 0, y0=None,
+                 global_h=None):
     """Gradients of Gaussian levels 1..S of gauss [B, S+3, H, W] f32 ->
-    (gx, gy) [B, S, max(H, min_h), max(W, min_w)] bf16."""
+    (gx, gy) [B, S, max(H, min_h), max(W, min_w)] bf16; `y0` (an int) and
+    `global_h` give a spatial slab's place in the image (default: none)."""
     if gauss.device.type == "cpu":
-        return grad_stencil_plain(gauss, S, min_h, min_w)
-    return _grad_stencil_cuda(gauss, S, min_h, min_w)
+        return grad_stencil_plain(gauss, S, min_h, min_w, y0, global_h)
+    return _grad_stencil_cuda(gauss, S, min_h, min_w, y0, global_h)

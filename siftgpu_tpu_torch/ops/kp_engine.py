@@ -5,12 +5,17 @@ Replaces `siftgpu_tpu/ops/kp_engine.py::orient_sample` (Pallas).  Per
 keypoint, on the gradient plane of its level:
 
   1. a 36-bin histogram of gradient magnitude weighted by `exp_window`, over
-     the (2R+1)^2 window clipped to the plane ∩ the radius circle ∩ the true
-     image rows, binned by floor(atan2 · nb/2π);
+     the (2R+1)^2 window clipped to the plane ∩ the radius circle ∩ the
+     image's rows, binned by floor(atan2 · nb/2π);
   2. box smoothing x6, peaks > both neighbours and >= peak_ratio · max, the
      `nori` highest kept (ties to the lowest bin), parabola-refined angle;
   3. for slot 0 and every further slot that has a peak, bilinear samples of
-     gx, gy on the rotated G x G grid, zero outside the true image.
+     gx, gy on the rotated G x G grid, zero outside the image.
+
+The image's rows are plane rows shifted by `y0g`: a spatial slab passes the
+image row of its row 0 and the image's height `global_h`, as the
+reference's kernel takes them (`siftgpu_tpu/ops/kp_engine.py:378, 730-731`);
+a whole image has y0g = 0 and global_h its true height.
 
 The semantics are those of the reference's XLA route
 (`orient.compute_orientations` + `describe._sample_coords` / `_bilerp_xla`),
@@ -44,7 +49,7 @@ EXPW = (
 
 KERNEL = _build.Kernel(
     "orient_sample", "kp_engine.cu",
-    {"orient_sample_launch": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+    {"orient_sample_launch": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
      + [ctypes.c_float] * 8 + [ctypes.c_void_p]},
     flags=["-fmad=false"],
 )
@@ -74,7 +79,7 @@ def _geometry(cfg):
     )
 
 
-def orient_sample_plain(gx, gy, plane, ky, kx, sigma, cfg, mask, h_true, w_true):
+def orient_sample_plain(gx, gy, plane, ky, kx, sigma, cfg, mask, global_h, w_true, y0g=0):
     """Plain PyTorch version; see `orient_sample` for the contract."""
     g = _geometry(cfg)
     R, win, nb, nori, G = g["R"], g["win"], g["nb"], g["nori"], g["G"]
@@ -102,7 +107,8 @@ def orient_sample_plain(gx, gy, plane, ky, kx, sigma, cfg, mask, h_true, w_true)
     radius = g["rad_f"] * sw
     wgt = exp_window(-r2 / (2.0 * (sw * sw))[:, None, None])
     wgt = torch.where(r2 <= (radius * radius)[:, None, None], wgt, 0.0)
-    wgt = wgt * (rows < h_true).to(torch.float32)[:, :, None]
+    grow = rows + int(y0g)                                    # image rows
+    wgt = wgt * ((grow >= 0) & (grow < global_h)).to(torch.float32)[:, :, None]
     mag = torch.sqrt(wx * wx + wy * wy)
     ang = torch.atan2(wy, wx)
     ang = torch.where(ang < 0, ang + TWO_PI, ang)            # floor-mod 2π
@@ -149,7 +155,8 @@ def orient_sample_plain(gx, gy, plane, ky, kx, sigma, cfg, mask, h_true, w_true)
         y1 = (y0 + 1).clamp(max=Hp - 1)
         fx = (px - x0.to(torch.float32)).clamp(0.0, 1.0)
         fy = (py - y0.to(torch.float32)).clamp(0.0, 1.0)
-        inb = ((px >= 0.0) & (px <= w_true - 1) & (py >= 0.0) & (py <= h_true - 1))
+        pyg = py + int(y0g)
+        inb = ((px >= 0.0) & (px <= w_true - 1) & (pyg >= 0.0) & (pyg <= global_h - 1))
         keep = mask if o == 0 else haspk[:, o]
         inb = (inb & keep[:, None, None]).to(torch.float32)
 
@@ -164,7 +171,7 @@ def orient_sample_plain(gx, gy, plane, ky, kx, sigma, cfg, mask, h_true, w_true)
     return theta, haspk, torch.cat(sgx, dim=1), torch.cat(sgy, dim=1)
 
 
-def _orient_sample_cuda(gx, gy, plane, ky, kx, sigma, cfg, mask, h_true, w_true):
+def _orient_sample_cuda(gx, gy, plane, ky, kx, sigma, cfg, mask, global_h, w_true, y0g=0):
     g = _geometry(cfg)
     P, Hp, Wp = gx.shape
     N = plane.shape[0]
@@ -192,23 +199,25 @@ def _orient_sample_cuda(gx, gy, plane, ky, kx, sigma, cfg, mask, h_true, w_true)
         "orient_sample_launch", dev,
         p(gx), p(gy), p(plane), p(ky), p(kx), p(sigma), p(mask),
         p(theta), p(haspk), p(sgx), p(sgy),
-        N, Hp, Wp, int(h_true), int(w_true), g["R"], g["nb"], nori, g["G"],
+        N, Hp, Wp, int(global_h), int(w_true), int(y0g), g["R"], g["nb"], nori, g["G"],
         _f32(g["sig_f"]), _f32(g["rad_f"]), _f32(g["peak"]), _f32(g["spacing"]),
         _f32(g["spc_cell"]), g["smax"], _f32(g["nb"] / TWO_PI), _f32(TWO_PI),
     )
     return theta, haspk, sgx, sgy
 
 
-def orient_sample(gx, gy, plane, ky, kx, sigma, cfg, mask, h_true: int, w_true: int):
+def orient_sample(gx, gy, plane, ky, kx, sigma, cfg, mask, global_h: int, w_true: int,
+                  y0g: int = 0):
     """Fused orientation + descriptor gradient sampling.
 
     gx, gy: [P, Hp, Wp] bf16 gradient planes (P = batch·levels); plane: [N]
-    int32 plane of each keypoint; ky, kx, sigma: [N] f32 octave-local
-    geometry; mask: [N] bool; h_true, w_true: the true image size (samples
-    outside it are zero).  Returns (theta [N, nori] f32, haspk [N, nori]
+    int32 plane of each keypoint; ky, kx, sigma: [N] f32 octave-local (slab)
+    geometry; mask: [N] bool; global_h, w_true: the image's height and true
+    width, y0g: the image row of plane row 0 (window rows and samples outside
+    the image are zero).  Returns (theta [N, nori] f32, haspk [N, nori]
     bool, sgx, sgy [N, nori·G²] f32).  Masked keypoints give zeros."""
     if gx.device.type == "cpu":
         return orient_sample_plain(gx, gy, plane, ky, kx, sigma, cfg, mask,
-                                   h_true, w_true)
+                                   global_h, w_true, y0g)
     return _orient_sample_cuda(gx, gy, plane, ky, kx, sigma, cfg, mask,
-                               h_true, w_true)
+                               global_h, w_true, y0g)

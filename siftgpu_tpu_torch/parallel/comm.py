@@ -12,6 +12,9 @@ block; replicated inputs stay replicated.
     device_count)`, or the CPU when asked for;
   - `all_reduce_sum` and `all_gather_rows` (a row-block all-gather; bool
     tensors travel as uint8, the one route for every backend);
+  - `gather_slabs` and `exchange_halo`: an image split into row slabs
+    gathered whole, or ringed with its neighbours' halo rows by one
+    all-gather of every rank's boundary rows (config 3, `spatial`);
   - `spawn(fn, n, backend, device, *args)`: n processes started with the
     `spawn` method, met through a file store, each group with a timeout;
     returns each rank's picklable result, raises if a rank fails.
@@ -26,6 +29,7 @@ import datetime
 import os
 import pickle
 import tempfile
+import time
 from typing import Callable, Optional
 
 import torch
@@ -34,7 +38,7 @@ import torch.distributed as dist
 from ..optim.ba import all_reduce_sum
 
 __all__ = ["rank", "world_size", "resolve", "device_of", "all_reduce_sum", "all_gather_rows",
-           "spawn"]
+           "gather_slabs", "exchange_halo", "spawn"]
 
 
 def resolve(group=None):
@@ -79,6 +83,70 @@ def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
                       device=src.device)
     dist.all_gather(list(out.chunk(n)), src, group=group)
     return out.bool() if x.dtype == torch.bool else out
+
+
+class _Clock:
+    """Host ms of one collective call, the device synchronised before and
+    after, into `stats` (a list; None: nothing synchronised or kept)."""
+
+    def __init__(self, stats: Optional[list], x: torch.Tensor):
+        self.stats = stats
+        self.sync = torch.cuda.synchronize if x.device.type == "cuda" else (lambda: None)
+        if stats is not None:
+            self.sync()
+        self.t0 = time.perf_counter()
+
+    def done(self, **info) -> None:
+        if self.stats is not None:
+            self.sync()
+            self.stats.append(dict(info, ms=(time.perf_counter() - self.t0) * 1e3))
+
+
+def gather_slabs(x: torch.Tensor, group=None, stats: Optional[list] = None) -> torch.Tensor:
+    """Row slabs x: [B, r, W] of every rank, in rank order -> the image
+    [B, n r, W] on every rank (one all-gather); `stats` as `exchange_halo`'s."""
+    group = resolve(group)
+    n = world_size(group)
+    clock = _Clock(stats, x)
+    out = all_gather_rows(x.transpose(0, 1).contiguous(), group).transpose(0, 1)
+    sent = x.numel() * x.element_size() if n > 1 else 0
+    clock.done(rows=x.shape[1], halo=0, calls=int(n > 1), bytes_sent=sent,
+               bytes_gathered=n * sent)
+    return out
+
+
+def exchange_halo(x: torch.Tensor, h: int, group=None, stats: Optional[list] = None):
+    """Halo exchange of an image split into row slabs: rank i holds x =
+    rows [i r, (i + 1) r) of every frame, x: [B, r, W].  Returns [B, r + 2h,
+    W], the rows [i r - h, (i + 1) r + h), where a row outside the image
+    [0, n r) is the image's edge row (replicate padding): the result of the
+    reference's ring of `ppermute` hops (`siftgpu_tpu/parallel/spatial.py::
+    _exchange_halo`).
+
+    One all-gather: each rank sends its top and bottom h rows, or its whole
+    slab when h >= r (the slab holds no more rows; the coarse octaves), and
+    takes what it needs from its neighbours' blocks.  One rank sends
+    nothing.  `stats`, if given, gets a dict of the call's slab rows, halo,
+    calls, bytes sent and gathered, and host ms (the device synchronised
+    before and after)."""
+    group = resolve(group)
+    n, idx = world_size(group), rank(group)
+    B, r, W = x.shape
+    clock = _Clock(stats, x)
+    if n == 1 or h >= r:                      # this slab, or every whole slab
+        full = x if n == 1 else gather_slabs(x, group)
+        off, sent = 0, (0 if n == 1 else x.numel())
+    else:                                     # the top and bottom h rows of each slab
+        edge = torch.cat([x[:, :h], x[:, r - h:]], dim=1)
+        blocks = all_gather_rows(edge[None], group)                        # [n, B, 2h, W]
+        parts = ([blocks[idx - 1, :, h:]] if idx > 0 else []) + [x] + (
+            [blocks[idx + 1, :, :h]] if idx < n - 1 else [])
+        full, off, sent = torch.cat(parts, dim=1), idx * r - (h if idx > 0 else 0), edge.numel()
+    rows = torch.arange(idx * r - h, (idx + 1) * r + h, device=x.device)
+    out = full.index_select(1, rows.clamp(0, n * r - 1) - off)
+    clock.done(rows=r, halo=h, calls=int(n > 1), bytes_sent=sent * x.element_size(),
+               bytes_gathered=n * sent * x.element_size() if n > 1 else 0)
+    return out
 
 
 def _run_rank(rank_: int, fn: Callable, n: int, backend: str, device: str, store: str,

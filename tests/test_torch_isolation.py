@@ -33,8 +33,8 @@ def test_imports_without_jax_or_reference():
         from siftgpu_tpu_torch.ops import (_build, desc_sampler, detect_scores, grad_stencil,
                                            kp_engine, match_kernel, pyramid_kernel)
         from siftgpu_tpu_torch.optim import ba, pnp, pose_graph
-        from siftgpu_tpu_torch.parallel import (comm, dist_ba, dist_pose_graph, dp, resident_ba,
-                                                sequence)
+        from siftgpu_tpu_torch.parallel import (comm, dist_ba, dist_pose_graph, dp, dryrun,
+                                                resident_ba, sequence, spatial)
         from siftgpu_tpu_torch.oracle import fixtures
         from siftgpu_tpu_torch.frontend.orient import compute_orientations
         from siftgpu_tpu_torch.pipeline import (api, checkpoint, cli, metrics, server, siftio, slam,

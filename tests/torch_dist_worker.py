@@ -12,7 +12,8 @@ import torch
 
 from siftgpu_tpu_torch.core.config import MatchConfig, SiftConfig
 from siftgpu_tpu_torch.optim import pose_graph as pg
-from siftgpu_tpu_torch.parallel import comm, dist_ba, dist_pose_graph, dp, resident_ba, sequence
+from siftgpu_tpu_torch.parallel import (comm, dist_ba, dist_pose_graph, dp, resident_ba, sequence,
+                                        spatial)
 from siftgpu_tpu_torch.pipeline import metrics, slam
 
 SCENE_T, SCENE_H, SCENE_W = 8, 96, 128
@@ -165,3 +166,28 @@ def run_slam_resident(feature_arrays, frames, intr, cfg, mcfg, scfg, *, group, d
     out = _summary(res)
     out.update(map_n=res.map_n, map_anchor=res.map_anchor)
     return out
+
+
+def spatial_cases(halo_cases, extract_cases, *, group, device):
+    """`comm.exchange_halo` of this rank's row slab of each (frames [B, H, W],
+    h) of `halo_cases`, as it comes and after `spatial._reclamp`; then
+    `extract_features_spatial` of each (images, cfg, options) of
+    `extract_cases`: (its NumPy fields, its per-octave stats), or the text
+    of the ValueError it raised."""
+    n, r = comm.world_size(group), comm.rank(group)
+    halos = []
+    for frames, h in halo_cases:
+        rows = frames.shape[1] // n
+        x = torch.from_numpy(np.ascontiguousarray(frames[:, r * rows:(r + 1) * rows])).to(device)
+        p = comm.exchange_halo(x, h, group)
+        halos.append((_np(p), _np(spatial._reclamp(p, h, r, n))))
+    feats = []
+    for images, cfg, kw in extract_cases:
+        stats = []
+        try:
+            f = spatial.extract_features_spatial(images, cfg, group, device, stats=stats, **kw)
+        except ValueError as e:
+            feats.append(str(e))
+            continue
+        feats.append(([_np(a) for a in f], stats))
+    return halos, feats
