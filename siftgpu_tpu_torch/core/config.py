@@ -199,7 +199,9 @@ class MatchConfig:
 
     The streaming knobs (`block_size`, `stream_threshold`, `stream_block`)
     and `use_pallas` are carried for parity: the port's matcher is the one
-    fused best-2 reduction (`ops/match_kernel.py`) at every size."""
+    fused best-2 reduction (`ops/match_kernel.py`) at every size, and its
+    uint8 pairs equal the reference's streaming route's
+    (tests/test_torch_match_stream.py)."""
 
     max_sift: int = 4096           # SetMaxSift analog: descriptor capacity
     max_match: int = 4096          # output match-buffer capacity

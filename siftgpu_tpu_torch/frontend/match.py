@@ -8,8 +8,12 @@ version on the CPU); guided matching through its H/F-gated variant, whose
 rank-1 gate operands `gate_operands` forms.  Float descriptors take the
 reference's dense route: L2-normalised rows, one f32 matmul (TF32 off) and
 the plain selection, on both devices (the reference computes this path
-outside any Pallas kernel; its blockwise `_match_streaming` selects
-identically and is not ported).  `_finalize` applies the angular distmax /
+outside any Pallas kernel).  The reference's blockwise `_match_streaming`,
+which its CPU route takes above `stream_threshold` columns or with
+`block_size` set, is not ported: for uint8 sets the one reduction selects
+the same pairs, bit for bit, by the auto switch and by explicit blocks,
+with ties on both sides of block edges, plain and through every gate
+(tests/test_torch_match_stream.py).  `_finalize` applies the angular distmax /
 ratiomax thresholds and the mutual-best check and compacts the surviving
 rows, in row order, into a fixed `[max_match, 2]` buffer padded with -1.
 

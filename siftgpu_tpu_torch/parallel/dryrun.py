@@ -17,12 +17,14 @@ Port of `siftgpu_tpu/parallel/dryrun.py`.  `run_dryrun(n)` spawns n ranks
      under 10% of the trajectory's span.
 
 Steps other than 2 run over the whole group (one group for every leg, as in
-the rest of the port).  Every rank returns a summary of its steps; a step
-that fails raises in its rank, and `comm.spawn` then raises.
+the rest of the port).  Every rank returns a summary of its steps, with
+the time it joined the group and its hand-kernel launches; a step that
+fails raises in its rank, and `comm.spawn` then raises.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -79,13 +81,15 @@ def _rank(*, group, device) -> dict:
     from ..frontend.match import match_descriptors
     from ..geometry import align
     from ..geometry import pose as P
+    from ..ops import _build
     from ..optim import pose_graph as pg
     from ..oracle import fixtures
     from ..pipeline import slam
     from . import dist_ba, dist_pose_graph, dp, sequence, spatial
 
     n = comm.world_size(group)
-    out = {"rank": comm.rank(group), "device": str(device)}
+    out = {"rank": comm.rank(group), "device": str(device), "t_joined": time.time()}
+    launched = {name: kern.launches for name, kern in _build.KERNELS.items()}
     d_spatial = 2 if n % 2 == 0 else 1
     d_data = n // d_spatial
 
@@ -149,7 +153,9 @@ def _rank(*, group, device) -> dict:
     est_c, gt_c = align.camera_centers(result.trajectory), align.camera_centers(sgt)
     ate, _ = align.ate_rmse(est_c, gt_c, with_scale=True)
     span = float(np.linalg.norm(gt_c[-1] - gt_c[0]))
-    out.update(keyframes=list(result.keyframe_indices), ate=float(ate), span=span)
+    out.update(keyframes=list(result.keyframe_indices), ate=float(ate), span=span,
+               launches={name: kern.launches - launched.get(name, 0)
+                         for name, kern in _build.KERNELS.items()})
     if not ate < 0.1 * span:
         raise AssertionError(f"dry run: config-5 trajectory ATE {ate:.4f} vs span {span:.4f}")
     return out
@@ -160,5 +166,7 @@ def run_dryrun(n: int, device="cuda", backend: str = "gloo", timeout: float = 60
     """The dry run in n spawned ranks of one `backend` group, rank r on
     `comm.device_of(r, device)`.  Returns every rank's summary (keypoint
     counts of steps 1-2, the match count, BA cost, the SLAM run's
-    keyframes, ATE and span); raises if a rank failed a step."""
+    keyframes, ATE and span, `t_joined` (time.time() once the group
+    joined) and the hand kernels' `launches` in the rank's steps); raises
+    if a rank failed a step."""
     return comm.spawn(_rank, n, backend, device, timeout=timeout, threads=threads)

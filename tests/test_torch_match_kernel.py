@@ -32,23 +32,26 @@ def _csrc_constants():
 
 
 def _covered(plan, P, N0, N1):
-    """How many blocks of the plan own each (pair, row, column)."""
+    """How many blocks of the plan own each (pair, row, column), counted per
+    (pair, 128-row tile, column): a block owns whole rows of its tile, and
+    the tiles cover the rows [0, N0) once."""
     bm, bn = plan["tile"]
     tps = plan["tiles_per_split"]
-    n = np.zeros((P, N0, N1), np.uint8)
     rt, ns, pp = plan["grid"]
+    assert (rt - 1) * bm < N0 <= rt * bm
+    n = np.zeros((P, rt, N1), np.uint8)
     for p in range(pp):
         for r in range(rt):
             for s in range(ns):
                 cols = slice(s * tps * bn, min((s + 1) * tps * bn, N1))
                 assert cols.start < N1, "an empty split"
-                n[p, r * bm : min((r + 1) * bm, N0), cols] += 1
+                n[p, r, cols] += 1
     return n
 
 
 @pytest.mark.parametrize("gate", [None, "h", "f", "hf"])
 @pytest.mark.parametrize("P,N0,N1", [(3, 1, 1), (2, 100, 333), (2, 333, 100), (3, 2048, 2048),
-                                     (1, 4096, 4096)], ids=str)
+                                     (1, 4096, 4096), (1, 16384, 16384)], ids=str)
 def test_launch_plan_covers_every_pair_once(P, N0, N1, gate):
     plan = mk.launch_plan(P, N0, N1, gate)
     c = _csrc_constants()
@@ -70,6 +73,11 @@ def test_launch_plan_covers_every_pair_once(P, N0, N1, gate):
         assert (plan["tiles_per_split"], plan["splits"], blocks) == (3, 11, 528)
     if (P, N0, N1) == (1, 4096, 4096):
         assert (plan["tiles_per_split"], plan["splits"], blocks) == (4, 16, 512)
+    if (P, N0, N1) == (1, 16384, 16384):
+        # bench.py's 16k pair: 128 row tiles x 256 column tiles; the scratch
+        # holds 3 x 16384 x 5 int32, each column takes 128 atomics
+        assert (plan["row_tiles"], plan["col_tiles"]) == (128, 256)
+        assert (plan["tiles_per_split"], plan["splits"], blocks) == (52, 5, 640)
 
 
 def test_launch_plan_refuses_empty_sets():

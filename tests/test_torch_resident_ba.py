@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
+import chip_smoke as cs
 import torch_dist_worker as worker
 from siftgpu_tpu.core.config import MatchConfig as JMatch
 from siftgpu_tpu.core.config import SiftConfig as JConfig
@@ -54,15 +55,8 @@ def _mesh2(name):
 
 def _window():
     prob, _, _ = _make_problem(n_cams=4, n_pts=64, seed=7)
-    M = 300
-    slots = np.linspace(5, 290, 64).astype(np.int64)
-    map_X = np.random.default_rng(3).uniform(-2, 2, (M, 3)).astype(np.float32)
-    map_X[slots] = np.asarray(prob.points)
-    fixed = np.zeros(M, bool)
-    fixed[slots[::8]] = True
-    return dict(cams=np.asarray(prob.cams), obs_c=np.asarray(prob.cam_idx),
-                obs_p=slots[np.asarray(prob.pt_idx)], obs_uv=np.asarray(prob.uv), fixed=fixed,
-                map_X=map_X, intr=np.asarray(prob.intrinsics), iters=3, n_cg=30)
+    return cs.resident_window(*(np.asarray(a) for a in (prob.cams, prob.points, prob.cam_idx,
+                                                        prob.pt_idx, prob.uv, prob.intrinsics)))
 
 
 def test_resident_solve_matches_reference():

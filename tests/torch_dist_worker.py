@@ -16,6 +16,8 @@ from siftgpu_tpu_torch.parallel import (comm, dist_ba, dist_pose_graph, dp, resi
                                         spatial)
 from siftgpu_tpu_torch.pipeline import metrics, slam
 
+from chip_smoke import resident_solve  # noqa: F401 (a rank target)
+
 SCENE_T, SCENE_H, SCENE_W = 8, 96, 128
 SCENE_INTR = (110.0, 110.0, SCENE_W / 2.0, SCENE_H / 2.0)
 SCENE_SCFG = dict(kf_min_inliers=40, kf_flow_px=4.0, init_flow_px=5.0, ba_iters=2, ba_cg=8,
@@ -84,26 +86,6 @@ def extract_sequence_dps(frames, cfg, chunk, *, group, device):
         host = isinstance(seq.desc, np.ndarray)
         out.append((host, seq.desc if host else _np(seq.desc), seq.x, seq.y, seq.mask))
     return out
-
-
-def resident_solve(window, edits, *, group, device):
-    """`ResidentBA.solve` on a fixed window (a dict of its arguments), then
-    the host edits `edits` (slot -> xyz) and a second solve.  Returns
-    (cams, cost, map_X after the first solve, the second call's upload
-    count, cams and map_X after the second)."""
-    rb = resident_ba.ResidentBA(group, device)
-    rb.set_intrinsics(window["intr"])
-    map_X = window["map_X"].copy()
-    args = [window[k] for k in ("cams", "obs_c", "obs_p", "obs_uv", "fixed")]
-    cams, cost = rb.solve(*args, map_X, window["iters"], window["n_cg"])
-    first = map_X.copy()
-    for slot, xyz in edits.items():
-        map_X[slot] = xyz
-    count = []
-    upload = rb._upload_dirty
-    rb._upload_dirty = lambda m: count.append(upload(m)) or count[-1]
-    cams2, _ = rb.solve(*args, map_X, window["iters"], window["n_cg"])
-    return cams, cost, first, count[0], cams2, map_X
 
 
 def _summary(res):
