@@ -178,11 +178,21 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      one PyTorch call computes the same function, that call, at its path's
      shapes (the octave kernel per octave as well): CUDA events around
      back-to-back calls and device time (torch.profiler), beside the
-     least time the card could take (`siftgpu_tpu_torch/bounds.py`).
+     least time the card could take (`siftgpu_tpu_torch/bounds.py`);
+  5b. bench.py's measurements (after 5, before 4d): launch counters reset
+     to 0, `bench_torch.run` in process: bench.py's five sections at its
+     sizes and counts (the 640 batch, a 1088x1920 and a 2160x3840 frame, the
+     16384^2 match, the stage table) with bench_torch.py's gates (among
+     them, at 1088x1920 and 2160x3840, each call of kernels 1-3 and the
+     octave kernel against its plain version); kernels 1-4 and the octave
+     kernel must have launched; the bench's JSON line is
+     logged on a line of its own.
 
 Any failed check raises, a failed rank included.  The last three lines
 are the card's name and power limit, one JSON object with a record per
-kernel (`slam_launches`: its launches in phase 4d's first run;
+kernel (`bench_launches`: its launches in one iteration of phase 5b's 640
+and 16k sections; `bench_frame_launches`: in the first calls of its 1080p
+and 4k sections; `slam_launches`: in phase 4d's first run;
 `online_launches`: in phase 4d's online-correction step; `large_launches`:
 in phase 4b2 (kernels 4 and 4g also carry `large_ms`, `large_plain_ms`,
 `large_device_ms` and `large_bound_ms` at 16384^2); `cli_launches`: in
@@ -344,10 +354,10 @@ def card_line() -> str:
     return out[0]
 
 
-def make_frames(h=H, w=W, b=B):
+def make_frames(h=H, w=W, b=B, seed=0):
     from siftgpu_tpu_torch.oracle import fixtures
 
-    base = fixtures.random_texture(h, w, seed=0, smooth=3)
+    base = fixtures.random_texture(h, w, seed=seed, smooth=3)
     frames = [base] + [
         fixtures.warp_affine(base, np.eye(2), np.array([SHIFT[0] * i, SHIFT[1] * i]))
         for i in range(1, b)
@@ -648,6 +658,41 @@ def paired_share(xa, ya, xb, yb, tol=0.5) -> float:
             used[j] = True
             hits += 1
     return hits / max(len(xa), 1)
+
+
+def cpu_pairing_gate(frame, feats, cfg, label: str) -> None:
+    """`frame` [1, H, W] through the port on the CPU must pair >= 99% of its
+    keypoints within 0.5 px with `feats`' image 0 (from the card), and the
+    two counts must agree within 1%."""
+    import torch
+
+    from siftgpu_tpu_torch import extract_features
+
+    t0 = time.perf_counter()
+    fc = extract_features(torch.from_numpy(frame), cfg)
+    mc, mg = fc.mask[0].numpy(), feats.mask[0].cpu().numpy()
+    share = paired_share(fc.x[0].numpy()[mc], fc.y[0].numpy()[mc],
+                         feats.x[0].cpu().numpy()[mg], feats.y[0].cpu().numpy()[mg])
+    log(f"  {label} on the CPU: {int(mc.sum())} kp, {share:.4f} paired within 0.5 px "
+        f"with the card's {int(mg.sum())} ({time.perf_counter() - t0:.1f} s)")
+    if share < 0.99 or abs(int(mc.sum()) - int(mg.sum())) > 0.01 * int(mc.sum()):
+        raise AssertionError(f"{label}, CPU vs card keypoints: paired share {share}")
+
+
+def main_path_gates(frames, feats, res, cfg) -> None:
+    """Phase 4's gates on one extract + match of `frames` (make_frames):
+    >= 90% known-shift inliers at < 1 px per consecutive pair, >= 100
+    keypoints per frame, and frame 0 through the port on the CPU paired
+    with the card's (`cpu_pairing_gate`)."""
+    for p in range(len(frames) - 1):
+        rate = inlier_rate(feats, res, p)
+        log(f"  pair {p}: inlier rate {rate:.4f}")
+        if rate < 0.9:
+            raise AssertionError(f"pair {p}: inlier rate {rate} < 0.9")
+    counts = feats.count.cpu().tolist()
+    if min(counts) < 100:
+        raise AssertionError(f"too few keypoints: {counts}")
+    cpu_pairing_gate(frames[:1], feats, cfg, "frame 0")
 
 
 class Call(NamedTuple):
@@ -1487,16 +1532,17 @@ LARGE_SHIFT = (37.0, -21.0)
 LARGE_ITERS = 10            # timed calls per route
 
 
-def large_sets(n=LARGE_N):
-    """bench.py:196-228's sets (d0, then d1, from default_rng(3)), and a
-    known-correspondence set: d1k = d0[perm] (perm from default_rng(4))
+def large_sets(n=LARGE_N, seed=3):
+    """bench.py:196-228's sets (d0, then d1, from default_rng(seed); bench.py's
+    seed is 3), and a known-correspondence set: d1k = d0[perm] (perm from
+    default_rng(seed + 1))
     with 10% of its bytes moved by up to +-2; locations on a 3840 x 2160
     frame, loc1k[j] = loc0[perm[j]] + LARGE_SHIFT + jitter within 0.5 px.
     Returns NumPy arrays (d0, d1, d1k, perm, loc0, loc1k)."""
-    rng = np.random.default_rng(3)
+    rng = np.random.default_rng(seed)
     d0 = rng.integers(0, 256, (n, 128), dtype=np.uint8)
     d1 = rng.integers(0, 256, (n, 128), dtype=np.uint8)
-    rng = np.random.default_rng(4)
+    rng = np.random.default_rng(seed + 1)
     perm = rng.permutation(n)
     noise = rng.integers(-LARGE_NOISE[1], LARGE_NOISE[1] + 1, d0.shape)
     noise *= rng.random(d0.shape) < LARGE_NOISE[0]
@@ -1504,6 +1550,14 @@ def large_sets(n=LARGE_N):
     loc0 = (rng.random((n, 2)) * [3840.0, 2160.0]).astype(np.float32)
     loc1k = (loc0[perm] + LARGE_SHIFT + rng.uniform(-0.5, 0.5, (n, 2))).astype(np.float32)
     return d0, d1, d1k, perm, loc0, loc1k
+
+
+def on_permutation(res, inv) -> int:
+    """Pairs of `res` (one pair of sets) that lie on a known permutation:
+    row i's true column is inv[i] (inv = argsort(perm), d1k = d0[perm])."""
+    c = int(res.count)
+    pr = res.pairs[:c].long()
+    return int((inv[pr[:, 0]] == pr[:, 1]).sum()) if c else 0
 
 
 def large_match_phase(dev, sync, par):
@@ -1556,7 +1610,7 @@ def large_match_phase(dev, sync, par):
     for label, res in out.items():
         c = int(res.count)
         pr = res.pairs[:c].long()
-        true = int((inv[pr[:, 0]] == pr[:, 1]).sum()) if c else 0
+        true = on_permutation(res, inv)
         msg = f"  {label}: {c} pairs, {true} on the permutation ({true / n:.5f} of it)"
         if label == "plain, known permutation" and true < 0.99 * n:
             raise AssertionError(f"large-set matcher: {true} of {n} recovered")
@@ -2972,33 +3026,52 @@ def record_calls(targets):
     return calls, lambda: [setattr(m, n, f) for m, n, f in saved]
 
 
-def slab_parity(run, cfg, sync, label):
-    """Kernels 1-3's calls in one spatial extraction (`run`), recorded, each
-    against its plain version on the card (Parity): the slab octaves with
-    their owned rows, y0 and global_h, the gathered octaves without.
-    Returns the largest error per kernel."""
+def kernel_calls(octave: bool = False):
+    """record_calls on the extraction's calls of kernels 1-3 (and of the
+    octave kernel, with `octave`): (calls, restore())."""
     from siftgpu_tpu_torch.frontend import detect as fdetect
     from siftgpu_tpu_torch.frontend import orient as forient
+    from siftgpu_tpu_torch.frontend import pyramid as fpyramid
     from siftgpu_tpu_torch.ops import kp_engine
 
-    calls, restore = record_calls({"detect": (fdetect, "detect_scores"),
-                                   "grad": (forient, "grad_stencil"),
-                                   "orient": (kp_engine, "orient_sample")})
+    targets = {"detect": (fdetect, "detect_scores"), "grad": (forient, "grad_stencil"),
+               "orient": (kp_engine, "orient_sample")}
+    if octave:
+        targets["octave"] = (fpyramid, "blur_octave_fused")
+    return record_calls(targets)
+
+
+def hold_calls(calls, cfg, sync, label):
+    """Each call recorded by kernel_calls against its plain version on the
+    card (Parity; these launches do not count): the octaves, the slab
+    octaves with their owned rows, y0 and global_h.  Returns the largest
+    error per kernel."""
+    par = Parity(cfg, sync)
+    with uncounted():
+        for (base, taps), _ in calls.get("octave", ()):
+            par.octave(base, taps, label, timed=False)
+        for (dog, _, owned), _ in calls["detect"]:
+            par.detect(dog, timed=False, owned_rows=owned)
+        for (gauss, _), kw in calls["grad"]:
+            par.grad(gauss, (kw["min_h"], kw["min_w"]), label, timed=False,
+                     slab=(kw["y0"], kw["global_h"]))
+        for args, _ in calls["orient"]:
+            live = int(args[7].sum())
+            par.orient_args(args, f"{label}, {live} kp on {tuple(args[0].shape)}, y0g "
+                            f"{args[10]}, image rows {args[8]}", timed=False)
+    return dict(par.err)
+
+
+def slab_parity(run, cfg, sync, label):
+    """Kernels 1-3's calls in one spatial extraction (`run`), recorded, each
+    against its plain version on the card (hold_calls).  Returns the
+    largest error per kernel."""
+    calls, restore = kernel_calls()
     try:
         run()
     finally:
         restore()
-    par = Parity(cfg, sync)
-    for (dog, _, owned), _ in calls["detect"]:
-        par.detect(dog, timed=False, owned_rows=owned)
-    for (gauss, _), kw in calls["grad"]:
-        par.grad(gauss, (kw["min_h"], kw["min_w"]), label, timed=False,
-                 slab=(kw["y0"], kw["global_h"]))
-    for args, _ in calls["orient"]:
-        live = int(args[7].sum())
-        par.orient_args(args, f"{label}, {live} kp on {tuple(args[0].shape)}, y0g "
-                        f"{args[10]}, image rows {args[8]}", timed=False)
-    return dict(par.err)
+    return hold_calls(calls, cfg, sync, label)
 
 
 def spatial_rank(job, *, group, device):
@@ -3225,6 +3298,36 @@ def spatial_alone(device: str, scale: int = 1):
     return out
 
 
+def bench_phase(dev):
+    """Phase 5b: bench_torch.py's sections in process, launch counters reset
+    first; at bench.py's sizes and counts on the card (at bench_torch.SMALL's
+    on the CPU).  Kernels 1-4 and the octave kernel must have launched.  Logs
+    the bench's JSON line.  Returns each kernel's launches in one iteration
+    of the 640 and 16k sections, in the first calls of the 1080p and 4k
+    sections, and its largest error against its plain version in those two
+    sections' gates."""
+    import bench_torch
+    from siftgpu_tpu_torch.ops import _build
+
+    cuda = dev.type == "cuda"
+    log("phase 5b: bench_torch.py's sections (bench.py's workloads)")
+    for kern in _build.KERNELS.values():
+        kern.launches = 0
+    line = bench_torch.run(dev.type, sizes=bench_torch.SIZES if cuda else bench_torch.SMALL)
+    launches = {name: kern.launches for name, kern in _build.KERNELS.items()}
+    log(f"  launches {launches}")
+    if cuda:
+        missing = [n for n in MAIN_KERNELS if launches[n] == 0]
+        if missing:
+            raise AssertionError(f"bench_torch.py did not launch {missing}")
+    log(json.dumps(line))
+    sec = line["sections"]
+    per_sum = lambda names: {name: sum(sec[s]["launches"][name] for s in names)
+                             for name in _build.KERNELS}
+    errs = [sec[s]["max_abs_err"] for s in ("1080p", "4k")]
+    return per_sum(("640", "16k")), per_sum(("1080p", "4k")), errs
+
+
 class PhaseClock:
     """Logs the wall seconds of each phase as it ends."""
 
@@ -3303,24 +3406,9 @@ def run(device: str, h=H, w=W, b=B, k=K):
         missing = [n for n in MAIN_KERNELS if launches[n] == 0]
         if missing:
             raise AssertionError(f"main path did not launch {missing}")
-    counts = feats.count.cpu().tolist()
-    log(f"  keypoints per frame {counts}, matches per pair {res.count.cpu().tolist()}, "
-        f"launches {launches}")
-    for p in range(b - 1):
-        rate = inlier_rate(feats, res, p)
-        log(f"  pair {p}: inlier rate {rate:.4f}")
-        if rate < 0.9:
-            raise AssertionError(f"pair {p}: inlier rate {rate} < 0.9")
-    if min(counts) < 100:
-        raise AssertionError(f"too few keypoints: {counts}")
-    fc = extract_features(torch.from_numpy(frames[:1]), cfg)
-    mc, mg = fc.mask[0].numpy(), feats.mask[0].cpu().numpy()
-    share = paired_share(fc.x[0].numpy()[mc], fc.y[0].numpy()[mc],
-                         feats.x[0].cpu().numpy()[mg], feats.y[0].cpu().numpy()[mg])
-    log(f"  frame 0 on the CPU: {int(mc.sum())} kp, {share:.4f} paired within 0.5 px "
-        f"with the card's {int(mg.sum())}")
-    if share < 0.99 or abs(int(mc.sum()) - int(mg.sum())) > 0.01 * int(mc.sum()):
-        raise AssertionError(f"CPU vs card keypoints: paired share {share}")
+    log(f"  keypoints per frame {feats.count.cpu().tolist()}, matches per pair "
+        f"{res.count.cpu().tolist()}, launches {launches}")
+    main_path_gates(frames, feats, res, cfg)
 
     # ---- 4b. the facade path, counted; then its kernels on the recorded calls ----
     clock.mark("phase 4")
@@ -3396,9 +3484,13 @@ def run(device: str, h=H, w=W, b=B, k=K):
                 f"(sum over {len(calls)} calls of its path)")
         records.append(rec)
 
+    # ---- 5b. bench_torch.py's sections, counted ----
+    clock.mark("phase 5")
+    bench_launches, bench_frame_launches, bench_errs = bench_phase(dev)
+    clock.mark("phase 5b")
+
     # ---- 4d. the SLAM path, counted; last, since its profiled run leaves
     # later torch.profiler sessions without the hand kernels' device time ----
-    clock.mark("phase 5")
     slam_launches, slam_ref = slam_phase(dev, sync, par, h, w, k)
     clock.mark("phase 4d")
     # (on the CPU its own test runs it: tests/test_torch_online_correction.py)
@@ -3419,12 +3511,14 @@ def run(device: str, h=H, w=W, b=B, k=K):
     clock.mark("phase 4g")
     dryrun_launches = dryrun_phase(dev)
     clock.mark("phase 4g, dry runs")
-    for err in spatial_errs:
+    for err in spatial_errs + bench_errs:
         for name, e in err.items():
             par.err[name] = max(par.err[name], e)
     for rec in records:
         name = rec["name"]
-        rec.update(slam_launches=slam_launches[name], cli_launches=cli_launches[name],
+        rec.update(bench_launches=bench_launches[name],
+                   bench_frame_launches=bench_frame_launches[name],
+                   slam_launches=slam_launches[name], cli_launches=cli_launches[name],
                    dist_launches=dist_launches[name], spatial_launches=spatial_launches[name],
                    large_launches=large_launches[name], online_launches=online_launches[name],
                    dryrun_launches=dryrun_launches.get(name, 0), max_abs_err=par.err[name])

@@ -37,8 +37,9 @@ def test_imports_without_jax_or_reference():
                                                 resident_ba, sequence, spatial)
         from siftgpu_tpu_torch.oracle import fixtures
         from siftgpu_tpu_torch.frontend.orient import compute_orientations
-        from siftgpu_tpu_torch.pipeline import (api, checkpoint, cli, metrics, server, siftio, slam,
-                                                twoview, viz)
+        from siftgpu_tpu_torch.pipeline import (api, checkpoint, cli, metrics, profile, server,
+                                                siftio, slam, twoview, viz)
+        import bench_torch
         assert not any(m == "jax" or m.startswith(("jax.", "siftgpu_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print(sorted(_build.KERNELS))
