@@ -186,7 +186,24 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      them, at 1088x1920 and 2160x3840, each call of kernels 1-3 and the
      octave kernel against its plain version); kernels 1-4 and the octave
      kernel must have launched; the bench's JSON line is
-     logged on a line of its own.
+     logged on a line of its own;
+  5c. the captured entry points (after 5b, before 4d): each of
+     `extract_features_jit` (phase 4's frames one at a time, and the batch
+     of 4), `match_descriptors_jit` and `match_descriptors_batch_jit`
+     (phase 4's 3 pairs), `slam._track_step_jit`, `_match_kf_jit` and
+     `_loop_match_jit` (the first tracking steps of a run_slam on phase
+     4d's scene against their live keyframes, its archive), `pnp.pnp_gn_jit`
+     (three of that run's PnP problems) and `ba.run_ba_jit` (its windowed
+     problems at two pow2 buckets): the eager call under torch's sync debug
+     mode "error" (no sync), the capture (seconds, pool MiB), three replays
+     on different inputs bit for bit against the eager function, replay
+     1's output unchanged after the later replays, the kernels' launch
+     counters after a replay equal to those after an eager call, and
+     eager against replay ms per call (CUDA events, median and p90 of 50)
+     beside the eager call's device time (torch.profiler), logged as a
+     `{"graphs": [...]}` line with the card's line; before them the main
+     path's synchronising calls per iteration, after them a capture with
+     a host sync inside must raise, naming the entry point.
 
 Any failed check raises, a failed rank included.  The last three lines
 are the card's name and power limit, one JSON object with a record per
@@ -3328,6 +3345,372 @@ def bench_phase(dev):
     return per_sum(("640", "16k")), per_sum(("1080p", "4k")), errs
 
 
+# ---------------- phase 5c: the captured entry points (core/graphs.py) ----------------
+
+GRAPH_TIMED_CALLS = 50
+
+
+def _pytree_clone(tree):
+    """`tree` (tuples, lists, dicts, NamedTuples) with every tensor cloned."""
+    import torch
+    from torch.utils import _pytree
+
+    return _pytree.tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
+
+
+@contextlib.contextmanager
+def recorded_calls(module, name: str, calls: list):
+    """Record (args, kwargs) of every call of `module.name`, tensors cloned
+    (the caller may reuse its buffers)."""
+    orig = getattr(module, name)
+
+    def rec(*args, **kwargs):
+        calls.append(_pytree_clone((args, kwargs)))
+        return orig(*args, **kwargs)
+
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def same_tree(a, b) -> bool:
+    """Two outputs of one entry point: the same structure and every tensor
+    the same bits."""
+    from torch.utils import _pytree
+
+    la, sa = _pytree.tree_flatten(a)
+    lb, sb = _pytree.tree_flatten(b)
+    return sa == sb and all(torch_equal_bits(x, y) if hasattr(x, "dtype") else x == y
+                            for x, y in zip(la, lb))
+
+
+def pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def pad_rows(ts, n: int):
+    """Tensors with a leading row axis padded to n rows with copies of row 0."""
+    import torch
+
+    return [torch.cat([t, t[:1].expand(n - t.shape[0], *t.shape[1:])]) for t in ts]
+
+
+def padded_pnp(call, n: int):
+    """A recorded `pnp_gn` call with its correspondences padded to n with
+    weight 0 (the later bucketed caller's layout)."""
+    import torch
+
+    (X, uv, w, intr, pose0), kw = call
+    X, uv = pad_rows([X, uv], n)
+    w = torch.cat([w, w.new_zeros(n - w.shape[0])])
+    return (X, uv, w, intr, pose0), kw
+
+
+def padded_ba(call, n: int):
+    """A recorded `run_ba` call with its observations padded to n with weight 0."""
+    import torch
+
+    (prob,), kw = call
+    ci, pi, uv = pad_rows([prob.cam_idx, prob.pt_idx, prob.uv], n)
+    w = torch.cat([prob.w, prob.w.new_zeros(n - prob.w.shape[0])])
+    return (prob._replace(cam_idx=ci, pt_idx=pi, uv=uv, w=w),), kw
+
+
+def nudged_ba(call, seed: int):
+    """A BA problem's cameras (but camera 0) moved by N(0, 1e-3): another
+    input of the same signature."""
+    import torch
+
+    (prob,), kw = call
+    rng = np.random.default_rng(seed)
+    d = torch.from_numpy(rng.normal(0.0, 1e-3, tuple(prob.cams.shape)).astype(np.float32))
+    d[0] = 0.0
+    return (prob._replace(cams=prob.cams + d.to(prob.cams.device)),), kw
+
+
+def device_work(fn, sync):
+    """(kernels, copies and memsets, and their summed device ms) of one call
+    of fn (torch.profiler)."""
+    import torch
+
+    fn()
+    sync()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        sync()
+    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.count for e in ev), sum(e.self_device_time_total for e in ev) / 1e3
+
+
+def host_sync(x):
+    """A function that reads a value on the host: it cannot be captured."""
+    return x * float(x.sum())
+
+
+def sync_sites(fn) -> list:
+    """Where one call of fn synchronised (torch's sync debug mode): for
+    each synchronising CUDA call, the innermost Python frames that led to
+    it, outermost first, as "file:line function"."""
+    import os
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stack = traceback.extract_stack()[:-2][-6:]    # without warnings' own frames
+            sites.append([f"{os.path.basename(f.filename)}:{f.lineno} {f.name}" for f in stack])
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sites
+
+
+def main_path_syncs(device: str = "cuda", h=H, w=W, b=B, k=K) -> list:
+    """Where one iteration of phase 4's main path, extract + match, after a
+    warm-up iteration, synchronised (`sync_sites`: one entry per
+    synchronising CUDA call), through whichever `siftgpu_tpu_torch` is
+    importable (run from another checkout's root to count that
+    checkout's)."""
+    import torch
+
+    from siftgpu_tpu_torch import (MatchConfig, SiftConfig, extract_features,
+                                   match_descriptors_batch)
+
+    cfg = SiftConfig(height=h, width=w, max_keypoints=k)
+    mcfg = MatchConfig(max_sift=k, max_match=k)
+    images = torch.from_numpy(make_frames(h, w, b)).to(device)
+
+    def main_path():
+        f = extract_features(images, cfg)
+        match_descriptors_batch(f.desc[:-1], f.desc[1:], f.mask[:-1], f.mask[1:], mcfg)
+
+    main_path()
+    torch.cuda.synchronize()
+    return sync_sites(main_path)
+
+
+def graph_case(name, jit, eager, inputs, dev, sync, card=""):
+    """One captured entry point against its eager function on `inputs`
+    ((args, kwargs) of one signature, at least three): the eager call under
+    the sync debug mode "error", the capture, every replay bit for bit
+    against the eager call on the same input, replay 1's output unchanged
+    after the later replays, the launch counters after one replay equal to
+    those after one eager call, and eager against replay ms per call
+    (logged with `card`, the card's name and power limit)."""
+    import torch
+
+    from siftgpu_tpu_torch.ops import _build
+
+    cuda = dev.type == "cuda"
+    if len(inputs) < 3:
+        raise AssertionError(f"{name}: {len(inputs)} inputs, three needed")
+    if len({jit.signature(*a, **kw)[0] for a, kw in inputs}) != 1:
+        raise AssertionError(f"{name}: the inputs do not share one signature")
+    a0, kw0 = inputs[0]
+    if cuda:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager(*a0, **kw0)
+        sync()
+    finally:
+        if cuda:
+            torch.cuda.set_sync_debug_mode(0)
+    want = [eager(*a, **kw) for a, kw in inputs]
+    got = [jit(*a0, **kw0)]
+    kept = _pytree_clone(got[0])
+    got += [jit(*a, **kw) for a, kw in inputs[1:]]
+    sync()
+    differ = [i for i, (g, e) in enumerate(zip(got, want)) if not same_tree(g, e)]
+    if differ:
+        raise AssertionError(f"{name}: replays {differ} differ from the eager calls")
+    if not same_tree(got[0], kept):
+        raise AssertionError(f"{name}: replay 1's output changed under later replays")
+
+    def counted(fn):
+        for kern in _build.KERNELS.values():
+            kern.launches = 0
+        fn(*a0, **kw0)
+        sync()
+        return {n: kern.launches for n, kern in _build.KERNELS.items() if kern.launches}
+
+    n_eager, n_jit = counted(eager), counted(jit)
+    if n_eager != n_jit:
+        raise AssertionError(f"{name}: launches after a replay {n_jit}, after an eager call "
+                             f"{n_eager}")
+    rec = dict(name=name, inputs=len(inputs), launches=n_eager,
+               hand_launches=sum(n_eager.values()), device_ops=None, eager_device_ms=None,
+               capture_s=None, pool_mib=None, eager_ms=None, eager_p90_ms=None,
+               replay_ms=None, replay_p90_ms=None)
+    if cuda:
+        import bench_torch
+
+        cap = jit.captures[jit.signature(*a0, **kw0)[0]]
+        e = bench_torch.event_stats(lambda: eager(*a0, **kw0), GRAPH_TIMED_CALLS)
+        r = bench_torch.event_stats(lambda: jit(*a0, **kw0), GRAPH_TIMED_CALLS)
+        e50, e90, r50, r90 = e["median_ms"], e["p90_ms"], r["median_ms"], r["p90_ms"]
+        ops, dev_ms = device_work(lambda: eager(*a0, **kw0), sync)
+        rec.update(device_ops=ops, eager_device_ms=dev_ms, capture_s=cap.seconds,
+                   pool_mib=cap.pool_bytes / 2 ** 20, eager_ms=e50, eager_p90_ms=e90,
+                   replay_ms=r50, replay_p90_ms=r90)
+        log(f"  {name} ({card}): captured in {cap.seconds:.3f} s, pool {rec['pool_mib']:.1f} MiB; "
+            f"{len(inputs)} replays bit-identical to eager, replay 1 kept; launches per call "
+            f"{n_eager}; eager: {ops} device ops, {dev_ms:.4f} ms of device time; ms per call "
+            f"(median/p90 of {GRAPH_TIMED_CALLS}) eager {e50:.4f}/{e90:.4f}, replay "
+            f"{r50:.4f}/{r90:.4f}")
+    else:
+        log(f"  {name}: {len(inputs)} calls equal to eager; nothing captured on {dev}: "
+            f"{len(jit.captures)} signatures")
+    return rec
+
+
+def graphs_phase(dev, sync, images, feats, h=H, w=W, k=K):
+    """Phase 5c (after 5b): each captured entry point (`extract_features_jit`,
+    `match_descriptors_jit` and `match_descriptors_batch_jit`,
+    `slam._track_step_jit`, `_match_kf_jit`, `_loop_match_jit`,
+    `pnp.pnp_gn_jit`, `ba.run_ba_jit`) against its eager function
+    (`graph_case`).  The inputs: phase 4's four frames one at a time and as
+    a batch of 4 (and that batch rolled); phase 4's three pairs, alone and
+    as a batch of 3 (rolled); and from one `run_slam` on phase 4d's loop
+    scene, recorded: its first tracking steps of one keyframe count against
+    their live keyframes, its loop-closure archive against three frames'
+    descriptors, three PnP problems padded with weight-0 rows to one pow2
+    bucket, and its windowed BA problems padded to pow2 observation
+    buckets, the two fullest buckets (cameras nudged where a bucket holds
+    fewer than three problems).  Before them the main path's synchronising
+    calls per iteration are counted (`main_path_syncs`); after them a
+    capture with a host sync inside must raise, and every capture is
+    released.  Returns one record per entry point and signature."""
+    import torch
+
+    from siftgpu_tpu_torch import MatchConfig, SiftConfig
+    from siftgpu_tpu_torch.core import graphs
+    from siftgpu_tpu_torch.frontend import extract, match
+    from siftgpu_tpu_torch.optim import ba, pnp
+    from siftgpu_tpu_torch.oracle import fixtures
+    from siftgpu_tpu_torch.pipeline import slam
+
+    log("phase 5c: the captured entry points (CUDA graphs, core/graphs.py) against the eager port")
+    cuda = dev.type == "cuda"
+    card = card_line() if cuda else ""
+    if cuda:
+        log(f"  {card}")
+    cfg = SiftConfig(height=h, width=w, max_keypoints=k)
+    mcfg = MatchConfig(max_sift=k, max_match=k)
+    records = []
+
+    def case(name, jit, eager, inputs):
+        records.append(graph_case(name, jit, eager, inputs, dev, sync, card))
+
+    if cuda:
+        sites = main_path_syncs(dev.type, h, w, images.shape[0], k)
+        log(f"  main path (extract + match): {len(sites)} synchronising CUDA calls per iteration "
+            f"(torch's sync debug mode){': ' if sites else ''}{sites}")
+    B = images.shape[0]
+    case("extract_features_jit, 1 frame", extract.extract_features_jit,
+         extract.extract_features, [((images[i:i + 1], cfg), {}) for i in range(B)])
+    case(f"extract_features_jit, {B} frames", extract.extract_features_jit,
+         extract.extract_features,
+         [((torch.roll(images, i, 0), cfg), {}) for i in range(3)])
+    d, m = feats.desc, feats.mask
+    case("match_descriptors_jit", match.match_descriptors_jit, match.match_descriptors,
+         [((d[i], d[i + 1], m[i], m[i + 1], mcfg), {}) for i in range(B - 1)])
+    case(f"match_descriptors_batch_jit, {B - 1} pairs", match.match_descriptors_batch_jit,
+         match.match_descriptors_batch,
+         [((torch.roll(d[:-1], i, 0), torch.roll(d[1:], i, 0), torch.roll(m[:-1], i, 0),
+            torch.roll(m[1:], i, 0), mcfg), {}) for i in range(3)])
+
+    # ---- one SLAM run of phase 4d's scene, its device steps recorded ----
+    frames, _, intr = slam_loop_scene(fixtures, h, w)
+    steps, loops, pnps, bas = [], [], [], []
+    with recorded_calls(slam, "_track_step", steps), recorded_calls(slam, "_loop_match", loops), \
+            recorded_calls(pnp, "pnp_gn", pnps), recorded_calls(ba, "run_ba", bas):
+        slam.run_slam(frames, intr, cfg, mcfg, slam_config(slam, w), device=dev)
+    log(f"  recorded from run_slam on phase 4d's scene: {len(steps)} tracking steps, "
+        f"{len(loops)} archive matches, {len(pnps)} PnP and {len(bas)} windowed BA problems")
+    by_p = {}
+    for call in steps:
+        by_p.setdefault(call[0][1].shape[0], []).append(call)
+    track = next((v[:3] for v in by_p.values() if len(v) >= 3), None)
+    if track is None:
+        raise AssertionError(f"run_slam made no three tracking steps of one keyframe count "
+                             f"({ {p: len(v) for p, v in by_p.items()} })")
+    case(f"_track_step_jit, {track[0][0][1].shape[0]} live keyframe(s)", slam._track_step_jit,
+         slam._track_step, track)
+    frame_feats = [slam._track_step(*a, **kw)[0] for a, kw in track]
+    case("_match_kf_jit", slam._match_kf_jit, slam._match_kf,
+         [((a[1], a[2], f.desc[0], f.mask[0], mcfg), {}) for (a, _), f in zip(track, frame_feats)])
+    arch_d, arch_m = (loops[0][0][0], loops[0][0][1]) if loops else (track[0][0][1],
+                                                                     track[0][0][2])
+    case(f"_loop_match_jit, {arch_d.shape[0]} archive rows", slam._loop_match_jit,
+         slam._loop_match, [((arch_d, arch_m, f.desc[0], f.mask[0], mcfg), {})
+                            for f in frame_feats])
+    by_kw = {}
+    for call in pnps:
+        by_kw.setdefault(tuple(sorted(call[1].items())), []).append(call)
+    three = sorted(max(by_kw.values(), key=len), key=lambda c: -c[0][0].shape[0])[:3]
+    nb = pow2(max(c[0][0].shape[0] for c in three))
+    case(f"pnp_gn_jit, {nb} rows", pnp.pnp_gn_jit, pnp.pnp_gn,
+         [padded_pnp(c, nb) for c in three])
+    buckets = {}
+    for call in bas:
+        prob = call[0][0]
+        nb = pow2(prob.cam_idx.shape[0])
+        buckets.setdefault((prob.cams.shape[0], nb), []).append(padded_ba(call, nb))
+    fullest = sorted(buckets.items(), key=lambda kv: -len(kv[1]))[:2]
+    if len(fullest) == 1:   # one bucket only: the next pow2 as the second
+        (mb, nb), calls = fullest[0]
+        fullest.append(((mb, 2 * nb), [padded_ba(c, 2 * nb) for c in calls]))
+    for (mb, nb), calls in fullest:
+        calls = calls[:3]
+        calls += [nudged_ba(calls[0], s) for s in range(3 - len(calls))]
+        case(f"run_ba_jit, {mb} cameras, {nb} observations", ba.run_ba_jit, ba.run_ba, calls)
+    if cuda:   # no fallback: a capture that fails raises, naming the entry point
+        try:
+            graphs.graphed(host_sync, "host_sync_jit")(torch.ones(4, device=dev))
+        except RuntimeError as e:
+            if not str(e).startswith("host_sync_jit: capture failed for the signature"):
+                raise
+            log(f"  a host sync under capture raises: {str(e).splitlines()[0][:160]}")
+        else:
+            raise AssertionError("a capture with a host sync inside did not raise")
+    for jit in (extract.extract_features_jit, match.match_descriptors_jit,
+                match.match_descriptors_batch_jit, slam._track_step_jit, slam._match_kf_jit,
+                slam._loop_match_jit, pnp.pnp_gn_jit, ba.run_ba_jit):
+        jit.captures.clear()    # the later phases run with the memory they had before
+    if cuda:
+        log(f"  {card_line()}")
+    log(json.dumps({"card": card, "graphs": records}))
+    return records
+
+
+def graphs_alone(device: str, h=H, w=W, b=B, k=K):
+    """Phase 5c without the phases before it: phase 4's frames and their
+    features, then `graphs_phase` (on the card the kernels are built at
+    their first launch)."""
+    import torch
+
+    from siftgpu_tpu_torch import SiftConfig, extract_features
+
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    images = torch.from_numpy(make_frames(h, w, b)).to(dev)
+    feats = extract_features(images, SiftConfig(height=h, width=w, max_keypoints=k))
+    return graphs_phase(dev, sync, images, feats, h, w, k)
+
+
 class PhaseClock:
     """Logs the wall seconds of each phase as it ends."""
 
@@ -3488,6 +3871,10 @@ def run(device: str, h=H, w=W, b=B, k=K):
     clock.mark("phase 5")
     bench_launches, bench_frame_launches, bench_errs = bench_phase(dev)
     clock.mark("phase 5b")
+
+    # ---- 5c. the captured entry points against the eager port ----
+    graphs_phase(dev, sync, images, feats, h, w, k)
+    clock.mark("phase 5c")
 
     # ---- 4d. the SLAM path, counted; last, since its profiled run leaves
     # later torch.profiler sessions without the hand kernels' device time ----

@@ -11,14 +11,14 @@ versions.  This package imports neither JAX nor `siftgpu_tpu`.
 """
 
 from .core.config import MatchConfig, SiftConfig
-from .frontend.extract import Features, extract_features
+from .frontend.extract import Features, extract_features, extract_features_jit
 from .frontend.match import MatchResult, match_descriptors, match_descriptors_batch
 from .pipeline.api import SiftMatchTPU, SiftTPU
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "SiftConfig", "MatchConfig", "Features", "extract_features",
+    "SiftConfig", "MatchConfig", "Features", "extract_features", "extract_features_jit",
     "MatchResult", "match_descriptors", "match_descriptors_batch",
     "SiftTPU", "SiftMatchTPU",
 ]

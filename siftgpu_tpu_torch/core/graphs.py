@@ -1,0 +1,192 @@
+"""Programs captured once per static shape: the counterpart of `jax.jit`'s
+cache of executables.
+
+`graphed(fn, name)` returns a callable with fn's signature.  The route
+follows the inputs' device, as a kernel's route does: CPU tensors call fn
+as it is and capture nothing; CUDA tensors replay a CUDA graph captured for
+the call's signature; tensors on two devices raise.  Nothing else turns
+capture on or off.
+
+The signature is each tensor argument's shape, dtype and device (tuples,
+lists and NamedTuples such as `BAProblem` are walked), whether each
+optional argument is None, and every other argument by value: configs
+(`SiftConfig`, `MatchConfig`) and Python ints and floats (`iters`,
+`huber_px`) are static, as jit's `static_argnums` makes them.  An argument
+that cannot be hashed raises.  Like jit's cache, the cache is unbounded.
+
+The first call of a signature runs fn twice on a side stream (PyTorch's
+CUDA-graph recipe: these calls build the kernels at first use, let cuDNN
+pick its algorithms, make cuBLAS's workspaces and the per-device constants
+of `device_constant`), captures a third call under `torch.cuda.graph` into
+a private memory pool, and replays it once.  Every call copies the
+caller's tensors into the graph's static inputs on the current stream,
+replays, and returns fresh clones of the outputs, as jit returns new
+arrays: no output aliases a buffer that the next replay overwrites.  There
+is no fallback: a capture that fails (a host sync inside fn, a copy from
+pageable memory, a launch that cannot be captured) raises, naming the
+entry point and the signature.
+
+During capture the hand kernels' launches are tallied against the graph
+(`_build.tally_launches`); each replay adds the tally to `Kernel.launches`,
+so the counters read after a replay what they read after an eager call.
+One lock per entry point serialises capture and replay; a replay waits
+for the previous one's output clones on whatever stream that ran.
+"""
+
+from __future__ import annotations
+
+import functools
+import inspect
+import threading
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..ops import _build
+
+__all__ = ["graphed", "Graphed", "Capture", "device_constant"]
+
+WARMUPS = 2
+
+_CONSTANTS: dict = {}
+
+
+def device_constant(key, device, make: Callable[[], np.ndarray]) -> torch.Tensor:
+    """The NumPy array `make()` as a tensor on `device`, made and uploaded
+    once per (key, device) and kept for the process.  The upload is a copy
+    from pageable memory, which synchronises the stream and cannot be
+    captured: a graph's warm-up calls make the constants, its capture finds
+    them here."""
+    k = (key, str(torch.device(device)))
+    t = _CONSTANTS.get(k)
+    if t is None:
+        t = _CONSTANTS.setdefault(k, torch.from_numpy(np.ascontiguousarray(make())).to(device))
+    return t
+
+
+def _flatten(x, leaves: list, where: str):
+    """x's structure as a hashable key, its tensors appended to `leaves`."""
+    if isinstance(x, torch.Tensor):
+        leaves.append(x)
+        return (torch.Tensor, tuple(x.shape), x.dtype, x.device)
+    if isinstance(x, (tuple, list)):
+        return (type(x), tuple(_flatten(v, leaves, where) for v in x))
+    try:
+        hash(x)
+    except TypeError:
+        raise TypeError(f"{where}: an argument of type {type(x).__name__} cannot be hashed, "
+                        "and every argument that is not a tensor is static") from None
+    return (type(x), x)
+
+
+def _rebuild(x, tensors):
+    """x with its tensors replaced, in order, by those of the iterator."""
+    if isinstance(x, torch.Tensor):
+        return next(tensors)
+    if isinstance(x, (tuple, list)):
+        vals = [_rebuild(v, tensors) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else type(x)(vals)
+    return x
+
+
+class Capture:
+    """One captured signature: the graph, its static input and output
+    tensors, the launches it holds, and what capturing it cost."""
+
+    def __init__(self, graph, inputs, out_tree, outputs, tally, seconds, pool_bytes):
+        self.graph = graph
+        self.inputs = inputs          # static input buffers, in argument order
+        self.out_tree = out_tree      # fn's output, its tensors those of `outputs`
+        self.outputs = outputs
+        self.tally = tally            # Kernel -> launches in one replay
+        self.seconds = seconds        # the warm-up calls and the capture
+        self.pool_bytes = pool_bytes  # device memory the capture reserved
+        self.done = None              # event after the last replay's clones
+
+    def run(self, leaves):
+        dev = self.inputs[0].device
+        stream = torch.cuda.current_stream(dev)
+        if self.done is not None:
+            stream.wait_event(self.done)
+        for dst, src in zip(self.inputs, leaves):
+            dst.copy_(src)
+        self.graph.replay()
+        outs = [t.clone() for t in self.outputs]
+        self.done = torch.cuda.Event()
+        self.done.record(stream)
+        _build.add_launches(self.tally)
+        return _rebuild(self.out_tree, iter(outs))
+
+
+class Graphed:
+    """fn, captured once per signature on CUDA inputs (see the module's
+    docstring).  `captures` maps each signature to its `Capture`."""
+
+    def __init__(self, fn: Callable, name: str):
+        functools.update_wrapper(self, fn)
+        self.__name__ = self.__qualname__ = name
+        self.fn = fn
+        self.captures: dict = {}
+        self._sig = inspect.signature(fn)
+        self._lock = threading.Lock()
+
+    def signature(self, *args, **kwargs):
+        """(key, bound arguments, tensors in argument order) of a call."""
+        bound = self._sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        leaves: list = []
+        key = tuple((k, _flatten(v, leaves, self.__name__)) for k, v in bound.arguments.items())
+        return key, bound, leaves
+
+    def __call__(self, *args, **kwargs):
+        key, bound, leaves = self.signature(*args, **kwargs)
+        devices = {t.device for t in leaves}
+        if len(devices) > 1:
+            raise ValueError(f"{self.__name__}: tensors on more than one device "
+                             f"({', '.join(sorted(map(str, devices)))})")
+        if not devices or next(iter(devices)).type != "cuda":
+            return self.fn(*args, **kwargs)
+        dev = leaves[0].device
+        with self._lock, torch.cuda.device(dev):
+            cap = self.captures.get(key)
+            if cap is None:
+                cap = self.captures[key] = self._capture(key, bound, leaves)
+            return cap.run(leaves)
+
+    def _capture(self, key, bound, leaves) -> Capture:
+        dev = leaves[0].device
+        t0 = time.perf_counter()
+        inputs = [torch.empty(t.shape, dtype=t.dtype, device=dev).copy_(t) for t in leaves]
+        it = iter(inputs)
+        args = inspect.BoundArguments(
+            self._sig, {k: _rebuild(v, it) for k, v in bound.arguments.items()})
+        call = lambda: self.fn(*args.args, **args.kwargs)
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUPS):
+                call()
+        cur.wait_stream(side)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with _build.tally_launches() as tally, torch.cuda.graph(graph):
+                out = call()
+        except RuntimeError as e:
+            raise RuntimeError(f"{self.__name__}: capture failed for the signature {key}: "
+                               f"{e}") from e
+        outputs: list = []
+        _flatten(out, outputs, self.__name__)
+        pool = torch.cuda.memory_reserved(dev) - reserved
+        return Capture(graph, inputs, out, outputs, tally, time.perf_counter() - t0, pool)
+
+
+def graphed(fn: Callable, name: str) -> Graphed:
+    """fn as an entry point captured once per static shape on CUDA inputs
+    and called as it is on CPU inputs; `name` names it in errors."""
+    return Graphed(fn, name)

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core.config import SiftConfig
+from ..core.graphs import device_constant
 from ..ops.desc_sampler import sample_gradients
 from .orient import GradStack
 from ..core.precision import full_f32
@@ -70,14 +71,26 @@ def _w2_constant(G: int, D: int, spc: int) -> np.ndarray:
     return np.einsum("ir,jc->ijrc", wrc, wrc).reshape(G * G, D * D)
 
 
+def _on_device(name: str, cfg: SiftConfig, device) -> torch.Tensor:
+    """`_grid_constants`' "t", "wrc" or "gw" (flattened to [G²]), or "W2",
+    on `device`, uploaded once (`core.graphs.device_constant`)."""
+    G, D, spc = cfg.descriptor_grid, cfg.descriptor_width, cfg.descriptor_samples_per_cell
+
+    def make():
+        if name == "W2":
+            return _w2_constant(G, D, spc)
+        t, wrc, gw = _grid_constants(G, D, spc)
+        return {"t": t, "wrc": wrc, "gw": gw.reshape(G * G)}[name]
+
+    return device_constant((name, G, D, spc), device, make)
+
+
 def _bin_chunk_fast(sgx, sgy, theta, cfg: SiftConfig):
     """Raw descriptors [B, C, 128] from samples [B, C, G²] and theta [B, C]."""
     B, C, G2 = sgx.shape
-    NB, D, G = cfg.descriptor_bins, cfg.descriptor_width, cfg.descriptor_grid
-    spc = cfg.descriptor_samples_per_cell
+    NB, D = cfg.descriptor_bins, cfg.descriptor_width
     dev = sgx.device
-    _, _, gw = _grid_constants(G, D, spc)
-    gwf = torch.from_numpy(gw.reshape(G2)).to(dev)
+    gwf = _on_device("gw", cfg, dev)
     mag = torch.sqrt(sgx * sgx + sgy * sgy) * gwf
     ang = torch.fmod(torch.atan2(sgy, sgx) - theta[..., None], _TWO_PI)
     ang = torch.where(ang < 0, ang + _TWO_PI, ang)           # floor-mod 2π
@@ -86,7 +99,7 @@ def _bin_chunk_fast(sgx, sgy, theta, cfg: SiftConfig):
     ad = (ob[..., None, :] - bins).abs()                       # [B, C, NB, G2]
     w = torch.clamp(1.0 - torch.minimum(ad, NB - ad), min=0.0)
     mo = mag[..., None, :] * w
-    W2 = torch.from_numpy(_w2_constant(G, D, spc)).to(dev)
+    W2 = _on_device("W2", cfg, dev)
     with full_f32():
         desc = torch.matmul(mo, W2)                            # [B, C, NB, D*D]
     return desc.transpose(-1, -2).reshape(B, C, D * D * NB)
@@ -123,8 +136,7 @@ def bin_descriptors(sgx: torch.Tensor, sgy: torch.Tensor, theta: torch.Tensor,
 def _sample_coords(y, x, sigma, theta, cfg: SiftConfig):
     """Rotated sample-grid coordinates. y..theta: [B, C] -> py, px [B, C, G, G]."""
     G = cfg.descriptor_grid
-    t, _, _ = _grid_constants(G, cfg.descriptor_width, cfg.descriptor_samples_per_cell)
-    t = torch.from_numpy(t).to(y.device)
+    t = _on_device("t", cfg, y.device)
     spc = cfg.descriptor_spacing * sigma / cfg.descriptor_samples_per_cell  # [B, C]
     u = t[None, None, None, :] * spc[..., None, None]      # [B, C, 1, G] (cols)
     v = t[None, None, :, None] * spc[..., None, None]      # [B, C, G, 1] (rows)
@@ -142,9 +154,8 @@ def _bin_chunk(sgx, sgy, theta, cfg: SiftConfig):
     G, D, NB = cfg.descriptor_grid, cfg.descriptor_width, cfg.descriptor_bins
     B, C, G2 = sgx.shape
     dev = sgx.device
-    _, wrc, gw = _grid_constants(G, D, cfg.descriptor_samples_per_cell)
-    wrc = torch.from_numpy(wrc).to(dev)
-    gwf = torch.from_numpy(gw.reshape(G2)).to(dev)
+    wrc = _on_device("wrc", cfg, dev)
+    gwf = _on_device("gw", cfg, dev)
     mag = torch.sqrt(sgx * sgx + sgy * sgy) * gwf           # [B, C, G2]
     ang = torch.fmod(torch.atan2(sgy, sgx) - theta[..., None], _TWO_PI)
     ang = torch.where(ang < 0, ang + _TWO_PI, ang)           # floor-mod 2π

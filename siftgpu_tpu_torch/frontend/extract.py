@@ -17,11 +17,12 @@ from typing import NamedTuple
 import torch
 
 from ..core.config import SiftConfig
+from ..core.graphs import graphed
 from . import detect, fused, orient, pyramid
 
 __all__ = [
     "Features", "octave_candidates", "prefilter_candidates",
-    "assemble_features", "to_image_coords", "extract_features",
+    "assemble_features", "to_image_coords", "extract_features", "extract_features_jit",
     "extract_features_obo",
 ]
 
@@ -152,6 +153,11 @@ def extract_features(images: torch.Tensor, cfg: SiftConfig) -> Features:
         cand = octave_candidates(oc, cfg, cfg.octave_cap(o), kp=kps[o])
         parts.append(to_image_coords(cand, cfg, o))
     return assemble_features(parts, cfg)
+
+
+# the reference's `extract_features_jit`: captured once per signature on
+# CUDA inputs (`core/graphs.py`)
+extract_features_jit = graphed(extract_features, "extract_features_jit")
 
 
 def extract_features_obo(images: torch.Tensor, cfg: SiftConfig) -> Features:

@@ -32,11 +32,13 @@ import numpy as np
 import torch
 
 from ..core.config import MatchConfig
+from ..core.graphs import graphed
 from ..ops.match_kernel import best2_dense, gate_matrix, match_best2, match_best2_gated, recip_norms
 from ..core.precision import full_f32
 
 __all__ = [
     "MatchResult", "match_descriptors", "match_descriptors_batch",
+    "match_descriptors_jit", "match_descriptors_batch_jit",
     "guided_match_descriptors", "gate_operands", "gate_thresholds",
 ]
 
@@ -139,6 +141,12 @@ def match_descriptors(
         None if mask1 is None else mask1[None], cfg,
     )
     return MatchResult(*(f[0] for f in res))
+
+
+# the reference's jitted `match_descriptors_batch` and `match_descriptors`:
+# captured once per signature on CUDA inputs (`core/graphs.py`)
+match_descriptors_batch_jit = graphed(match_descriptors_batch, "match_descriptors_batch_jit")
+match_descriptors_jit = graphed(match_descriptors, "match_descriptors_jit")
 
 
 # ---------------- guided matching (GetGuidedSiftMatch) ----------------

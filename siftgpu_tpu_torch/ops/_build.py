@@ -20,19 +20,22 @@ wrapper in each `ops/` module before it ever gets here.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "KERNELS", "BUILD_DIR", "CSRC", "find_nvcc", "check_tensor", "build_all"]
+__all__ = ["Kernel", "KERNELS", "BUILD_DIR", "CSRC", "find_nvcc", "check_tensor", "build_all",
+           "tally_launches", "add_launches"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -78,7 +81,8 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> N
 class Kernel:
     """One CUDA source file, its C entry point(s) and a launch counter.
 
-    `launches` counts calls that launched the kernel on the card; callers
+    `launches` counts calls that launched the kernel on the card, and a
+    captured graph's launches at each replay (`tally_launches`); callers
     reset it to 0 themselves (`chip_smoke.py` does so around the main path).
     """
 
@@ -160,7 +164,36 @@ class Kernel:
         if rc != 0:
             msg = self._lib.sift_cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc} ({msg})")
-        self.launches += 1
+        tally = getattr(_TALLY, "launches", None)
+        if tally is None:
+            self.launches += 1
+        else:
+            tally[self] = tally.get(self, 0) + 1
+
+
+# the launches that this thread's CUDA-graph capture records (None outside one)
+_TALLY = threading.local()
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Inside the block, this thread's launches are counted into the dict
+    it yields (Kernel -> launches), not into `Kernel.launches`: a launch
+    under stream capture is recorded into a graph and runs only when the
+    graph is replayed, and each replay adds the tally (`add_launches`)."""
+    tally: dict = {}
+    prev = getattr(_TALLY, "launches", None)
+    _TALLY.launches = tally
+    try:
+        yield tally
+    finally:
+        _TALLY.launches = prev
+
+
+def add_launches(tally: dict) -> None:
+    """Add a graph's tally of launches to the kernels' counters."""
+    for kern, n in tally.items():
+        kern.launches += n
 
 
 def ptr(t: torch.Tensor) -> int:

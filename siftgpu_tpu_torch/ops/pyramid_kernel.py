@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.graphs import device_constant
 from ..core.precision import full_f32
 from . import _build
 
@@ -53,8 +54,6 @@ KERNEL = _build.Kernel(
 TILE, THREADS, _MAX_TAPS, _MAX_LEVELS = (64, 64), 256, 256, 32
 _SMEM_BYTES = 232448 - (_MAX_TAPS + 2 * _MAX_LEVELS) * 4
 
-_TAPS_CACHE: dict = {}
-
 
 def blur_separable(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     """Separable Gaussian blur of [B, H, W] f32 with replicate edges: the
@@ -62,7 +61,8 @@ def blur_separable(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     Each image is convolved alone, so an image's result does not depend on
     the batch it came in (a batched convolution may pick another algorithm,
     and round otherwise, for another batch size: oneDNN on the CPU does)."""
-    t = torch.as_tensor(np.asarray(taps, np.float32), device=x.device)
+    a = np.asarray(taps, np.float32)
+    t = device_constant(("taps", a.tobytes()), x.device, lambda: a)
     r = (t.shape[0] - 1) // 2
     out = []
     with full_f32():
@@ -88,14 +88,12 @@ def _taps_operands(taps_list, device):
     """(taps back to back [sum(2r+1)] f32, radii [L-1] int32) on `device`,
     cached per taps and device."""
     arrs = [np.asarray(t, np.float32) for t in taps_list]
-    key = (tuple(a.tobytes() for a in arrs), str(device))
-    if key not in _TAPS_CACHE:
-        if any(a.ndim != 1 or a.shape[0] % 2 == 0 for a in arrs):
-            raise ValueError("taps: expected 1-D arrays of odd length")
-        radii = np.array([(a.shape[0] - 1) // 2 for a in arrs], np.int32)
-        _TAPS_CACHE[key] = (torch.from_numpy(np.concatenate(arrs)).to(device),
-                            torch.from_numpy(radii).to(device))
-    return _TAPS_CACHE[key]
+    if any(a.ndim != 1 or a.shape[0] % 2 == 0 for a in arrs):
+        raise ValueError("taps: expected 1-D arrays of odd length")
+    key = tuple(a.tobytes() for a in arrs)
+    radii = lambda: np.array([(a.shape[0] - 1) // 2 for a in arrs], np.int32)
+    return (device_constant(("octave taps", key), device, lambda: np.concatenate(arrs)),
+            device_constant(("octave radii", key), device, radii))
 
 
 def launch_plan(B: int, H: int, W: int, radii) -> dict:

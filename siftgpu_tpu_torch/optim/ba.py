@@ -33,12 +33,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..core.graphs import graphed
 from ..core.precision import full_f32
 from ..geometry.pose import _so3_left_jacobian, exp_so3, hat
 
 __all__ = [
     "BAProblem", "BAState", "Segments", "project", "reprojection_residuals", "schur_solve",
-    "run_ba", "refine_points", "all_reduce_sum",
+    "run_ba", "run_ba_jit", "refine_points", "all_reduce_sum",
 ]
 
 
@@ -269,12 +270,12 @@ def run_ba(prob: BAProblem, iters: int = 10, n_cg: int = 30,
     cameras and cost, and its own refined points."""
     M, P = prob.cams.shape[0], prob.points.shape[0]
     dev, dt = prob.cams.device, prob.cams.dtype
-    gauge = torch.ones(M, dtype=dt, device=dev)
-    if fix_first_cam:
-        gauge[0] = 0.0
+    # 0 for a frozen camera 0, made on the device: assigning a host scalar
+    # into a device tensor would synchronise
+    gauge = (torch.arange(M, device=dev) >= int(fix_first_cam)).to(dt)
     segments = (Segments.of(prob.cam_idx, M), Segments.of(prob.pt_idx, P))
     state = BAState(cams=prob.cams, points=prob.points,
-                    lam=torch.tensor(lam0, dtype=torch.float32, device=dev),
+                    lam=torch.full((), lam0, dtype=torch.float32, device=dev),
                     cost=_cost(prob, prob.cams, prob.points, group))
     for _ in range(iters):
         r, Jc, Jp = _jacobians(prob, state.cams, state.points)
@@ -293,6 +294,11 @@ def run_ba(prob: BAProblem, iters: int = 10, n_cg: int = 30,
             cost=torch.where(accept, new_cost, state.cost),
         )
     return state
+
+
+# the reference's jitted `run_ba`: captured once per signature on CUDA
+# inputs (`core/graphs.py`), the `Segments` plan inside the capture
+run_ba_jit = graphed(run_ba, "run_ba_jit")
 
 
 def refine_points(prob: BAProblem, iters: int = 3, huber_px: float = 3.0) -> torch.Tensor:

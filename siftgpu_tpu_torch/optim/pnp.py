@@ -23,11 +23,12 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.graphs import graphed
 from ..core.precision import full_f32
 from ..geometry import pose as P
 from .ba import _pixels, _proj_jacobian
 
-__all__ = ["PnPResult", "pnp_gn"]
+__all__ = ["PnPResult", "pnp_gn", "pnp_gn_jit"]
 
 
 class PnPResult(NamedTuple):
@@ -92,3 +93,8 @@ def pnp_gn(
     rms = torch.sqrt(((rn ** 2) * inl).sum() / n)
     return PnPResult(pose=P.log_se3(R, t), inliers=inl,
                      num_inliers=inl.sum().to(torch.int32), rms=rms)
+
+
+# the reference's jitted `pnp_gn` (`iters`, `huber_px` and `inlier_px`
+# static): captured once per signature on CUDA inputs (`core/graphs.py`)
+pnp_gn_jit = graphed(pnp_gn, "pnp_gn_jit")

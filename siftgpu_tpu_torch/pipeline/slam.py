@@ -17,10 +17,13 @@ World frame = camera 0; monocular scale is fixed by the bootstrap baseline
 (`geometry/align.py`).
 
 Differences from the reference:
-  - `_track_step_jit`, `_match_kf_jit` and `_loop_match_jit` are plain
+  - the loop calls `_track_step`, `_match_kf` and `_loop_match`, eager
     functions over `extract_features` and `match_descriptors_batch`, the
     frame's descriptors broadcast against the P live keyframes or the C
-    archive rows;
+    archive rows; their counterparts of the reference's compiled steps,
+    `_track_step_jit`, `_match_kf_jit` and `_loop_match_jit`, are CUDA
+    graphs captured once per signature (`core/graphs.py`), which the loop
+    does not call yet;
   - each tracked frame's pairs, counts, x, y and mask come back in ONE copy
     (`_Pull`): packed on the card, copied without blocking into pinned host
     memory, an event recorded, and only then frame t+1 is enqueued
@@ -53,6 +56,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..core.graphs import graphed
 from ..frontend.extract import extract_features
 from ..frontend.match import match_descriptors, match_descriptors_batch
 from ..geometry import epipolar
@@ -159,6 +163,13 @@ def _track_step(frame, kf_desc, kf_mask, cfg, mcfg):
     feats = extract_features(frame[None], cfg)
     pairs, counts = _match_kf(kf_desc, kf_mask, feats.desc[0], feats.mask[0], mcfg)
     return feats, pairs, counts
+
+
+# the reference's jitted steps: captured once per signature on CUDA inputs
+# (`core/graphs.py`); `run_slam` still calls the eager functions above
+_track_step_jit = graphed(_track_step, "_track_step_jit")
+_match_kf_jit = graphed(_match_kf, "_match_kf_jit")
+_loop_match_jit = graphed(_loop_match, "_loop_match_jit")
 
 
 @dataclasses.dataclass(frozen=True)

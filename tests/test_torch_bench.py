@@ -1,14 +1,16 @@
-"""bench_torch.py, the port's counterpart of bench.py, on the CPU.
+"""bench_torch.py, the port's counterpart of bench.py, on the CPU: its
+workloads and its line.
 
 Its workload generators against bench.py's recipe built with the
 reference's own fixtures (bit for bit); the 640 section at a small size
 against the reference's `extract_features_jit` + `match_descriptors_batch`
 on the same frames (keypoints per frame equal and within the extraction
 budgets of tests/test_torch_extract.py; matches per pair and matched index
-pairs equal, measured at this size); every gate raising on bad output, a
-kernel that disagrees with its plain version included; the
-other sections at small sizes; no run without a card; and the last line's
-keys against bench.py's own."""
+pairs equal, measured at this size); the 640 and pairing gates raising on
+bad output; no run without a card; and the last line's keys against
+bench.py's own.  The other sections: tests/test_torch_bench_frames.py
+(1080p and 4k) and tests/test_torch_bench_phase.py (16k, the stage table,
+chip_smoke.py's phase 5b)."""
 
 import ast
 import functools
@@ -32,7 +34,6 @@ from siftgpu_tpu.frontend.match import match_descriptors_batch as jmatch_batch
 from siftgpu_tpu.oracle import fixtures as jfix
 from siftgpu_tpu_torch import MatchConfig, SiftConfig, extract_features, match_descriptors_batch
 from siftgpu_tpu_torch.frontend.match import match_descriptors
-from siftgpu_tpu_torch.ops import detect_scores, kp_engine, pyramid_kernel
 from siftgpu_tpu_torch.oracle import fixtures
 
 from test_torch_extract import check_features
@@ -171,56 +172,6 @@ def test_cpu_pairing_gate_raises_on_another_frame():
         cs.cpu_pairing_gate(frame, other, cfg, "other")
 
 
-@pytest.mark.parametrize("name", ["1080p", "4k"])
-def test_frame_section_small(name):
-    out = bt.SECTION_FNS[name](CPU, bt.SMALL[name], bt.SEEDS[name])
-    assert out["kp"] == bt.SMALL[name].k
-    # kernels 1-3 and the octave kernel held against their plain versions
-    assert set(out["max_abs_err"]) == {"blur_octave_fused", "detect_scores", "grad_stencil",
-                                       "orient_sample"}
-    assert out["reps_s"] is None and out["events"] is None
-
-
-def test_frame_section_raises_where_the_cap_does_not_bind():
-    with pytest.raises(AssertionError, match="does not bind"):
-        bt.section_1080p(CPU, bt.SMALL["1080p"]._replace(k=4096), 7)
-
-
-def _off(fn, change):
-    return lambda *a, **kw: change(fn(*a, **kw))
-
-
-FAULTS = {   # a kernel's wrapper off its plain version, and what says so
-    "octave": (pyramid_kernel, "blur_octave_fused", lambda o: (o[0], o[1] + 1e-3),
-               "blur_octave_fused .* max abs err"),
-    "detect": (detect_scores, "detect_scores", lambda o: (o[0] + 1.0,) + tuple(o[1:]),
-               "score plane 0 differs"),
-    "orient": (kp_engine, "orient_sample", lambda o: (o[0] + 0.3,) + tuple(o[1:]),
-               "theta q98"),
-}
-
-
-@pytest.mark.parametrize("fault", sorted(FAULTS))
-def test_frame_section_raises_on_a_kernel_off_its_plain_version(monkeypatch, fault):
-    mod, name, change, msg = FAULTS[fault]
-    monkeypatch.setattr(mod, name, _off(getattr(mod, name), change))
-    with pytest.raises(AssertionError, match=msg):
-        bt.section_4k(CPU, bt.SMALL["4k"], 9)
-
-
-def test_frame_section_raises_on_a_call_that_does_not_repeat(monkeypatch):
-    calls = []
-
-    def drifting(images, cfg):
-        f = extract_features(images, cfg)
-        calls.append(1)
-        return f._replace(x=f.x + 1e-3 * len(calls))
-
-    monkeypatch.setattr(bt, "extract_features", drifting)
-    with pytest.raises(AssertionError, match="not bit-identical"):
-        bt.section_4k(CPU, bt.SMALL["4k"], 9)
-
-
 def test_permutation_gate_at_512():
     d0, _, d1k, perm, _, _ = (torch.from_numpy(a) for a in bt.large_sets(512, 3))
     res = match_descriptors(d0, d1k, cfg=MatchConfig(max_sift=512, max_match=512))
@@ -228,16 +179,6 @@ def test_permutation_gate_at_512():
     shuffled = perm[torch.from_numpy(np.random.default_rng(0).permutation(512))]
     with pytest.raises(AssertionError, match="permuted pairs recovered"):
         bt.permutation_gate(res, shuffled)
-
-
-def test_16k_section_small():
-    out = bt.section_16k(CPU, bt.SMALL["16k"], bt.SEEDS["16k"])
-    assert out["permutation_recovered"] == 512 and out["matches"] == 0
-
-
-def test_stages_section_small():
-    out = bt.section_stages(CPU, bt.SMALL["stages"], 0)
-    assert out["stages_s"] is None
 
 
 def test_line_keys_and_values():
@@ -284,13 +225,3 @@ def test_command_exits_1_without_a_card():
     out = subprocess.run([sys.executable, "bench_torch.py", "--only", "16k"], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 1 and out.stdout == ""
-
-
-def test_phase_5b_on_the_cpu():
-    launches, frame_launches, errs = cs.bench_phase(CPU)
-    kernels = {"detect_scores", "grad_stencil", "orient_sample", "match_best2",
-               "match_best2_gated", "sample_gradients", "blur_octave_fused"}
-    assert set(launches) == set(frame_launches) == kernels
-    # the plain versions launch nothing
-    assert not any(launches.values()) and not any(frame_launches.values())
-    assert len(errs) == 2 and all(set(e) < kernels for e in errs)

@@ -26,7 +26,8 @@ def test_imports_without_jax_or_reference():
             sys.modules[name] = None          # any import of them now fails
         import siftgpu_tpu_torch
         from siftgpu_tpu_torch import bounds, convert
-        from siftgpu_tpu_torch.core import config, flags, image, native, precision, scalespace
+        from siftgpu_tpu_torch.core import (config, flags, graphs, image, native, precision,
+                                            scalespace)
         from siftgpu_tpu_torch.frontend import (describe, detect, extract, fused, match, orient,
                                                 pyramid, redetect)
         from siftgpu_tpu_torch.geometry import align, epipolar, pose
