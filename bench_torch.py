@@ -110,6 +110,9 @@ SMALL = {   # a CPU rehearsal's: one call, nothing timed
     "16k": Sizes(0, 0, 512, iters=1, reps=1, events=1),
     "stages": Sizes(120, 160, 256, b=4, iters=1, reps=1, events=1),
 }
+# bench.py's shapes, nothing timed: each section's gates and its first
+# call's launches (chip_smoke.py's phase 5b on the card)
+COUNTS = {name: s._replace(iters=1, reps=0, events=0) for name, s in SIZES.items()}
 
 
 def say(msg: str) -> None:
@@ -125,11 +128,11 @@ def counted(fn):
 
 class Section:
     """One section's run on `dev`: its sync, whether it is timed (on the card
-    only), its peak device memory (above what was allocated when it began),
-    and its results."""
+    only, and not with `timed` False), its peak device memory (above what
+    was allocated when it began), and its results."""
 
-    def __init__(self, name: str, dev: torch.device):
-        self.dev, self.timed = dev, dev.type == "cuda"
+    def __init__(self, name: str, dev: torch.device, timed: bool = True):
+        self.dev, self.timed = dev, timed and dev.type == "cuda"
         self.sync = torch.cuda.synchronize if self.timed else (lambda: None)
         self.out = {"name": name, "warmup_s": None, "reps_s": None, "events": None,
                     "peak_call_bytes": None, "peak_bytes": None}
@@ -199,7 +202,7 @@ def event_stats(fn, n: int) -> dict:
 def section_640(dev, sizes: Sizes = SIZES["640"], seed: int = SEEDS["640"]) -> dict:
     """bench.py:60-133: extract a batch of shifted frames, match its
     consecutive pairs; chip_smoke.py's phase-4 gates."""
-    sec = Section("640", dev)
+    sec = Section("640", dev, sizes.reps > 0)
     cfg = SiftConfig(height=sizes.h, width=sizes.w, max_keypoints=sizes.k)
     mcfg = MatchConfig(max_sift=sizes.k, max_match=sizes.k)
     frames = make_frames(sizes.h, sizes.w, sizes.b, seed)
@@ -250,7 +253,7 @@ def _frame_section(name: str, dev, sizes: Sizes, seed: int) -> dict:
     repeated call is bit-identical, its calls of kernels 1-3 and the octave
     kernel hold against their plain versions, and the frame through the port
     on the CPU pairs with the card's."""
-    sec = Section(name, dev)
+    sec = Section(name, dev, sizes.reps > 0)
     cfg = SiftConfig(height=sizes.h, width=sizes.w, max_keypoints=sizes.k)
     frame = spatial_frame(sizes.h, sizes.w, seed)
     image = torch.from_numpy(frame).to(dev)
@@ -308,7 +311,7 @@ def permutation_gate(res, perm) -> int:
 def section_16k(dev, sizes: Sizes = SIZES["16k"], seed: int = SEEDS["16k"]) -> dict:
     """bench.py:194-228: brute-force matching of two random uint8 sets, gated
     first on a known permutation of the first set."""
-    sec = Section("16k", dev)
+    sec = Section("16k", dev, sizes.reps > 0)
     n = sizes.k
     d0, d1, d1k, perm, _, _ = (torch.from_numpy(a).to(dev) for a in large_sets(n, seed))
     mcfg = MatchConfig(max_sift=n, max_match=n)
@@ -329,7 +332,7 @@ def section_16k(dev, sizes: Sizes = SIZES["16k"], seed: int = SEEDS["16k"]) -> d
 
 def section_stages(dev, sizes: Sizes = SIZES["stages"], seed: int = SEEDS["stages"]) -> dict:
     """bench.py:230-244: the per-stage table on the 640 section's frames."""
-    sec = Section("stages", dev)
+    sec = Section("stages", dev, sizes.reps > 0)
     cfg = SiftConfig(height=sizes.h, width=sizes.w, max_keypoints=sizes.k)
     mcfg = MatchConfig(max_sift=sizes.k, max_match=sizes.k)
     images = torch.from_numpy(make_frames(sizes.h, sizes.w, sizes.b, seed)).to(dev)

@@ -50,7 +50,14 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      on a 9 x 9 grid; kernels 1-3 with a spatial slab's arguments (owned
      rows that cut 16 x 64 tiles, lo = 0 / hi = H; a negative y0, global_h
      inside the slab, a slab reaching the image's bottom; window rows and
-     samples off both image edges);
+     samples off both image edges); after phase 4c, the small-matrix
+     kernel (`ops/small_eig.py`, the two-view geometry's eigh and 3 x 3
+     SVD) on the calls phase 4c records ([512, 9, 9], [9, 9], [4, 2048, 4,
+     4], [512, 3, 3], [3, 3]) and on edge cases (repeated eigenvalues, the
+     zero matrix, rank 1 and 2, an essential matrix, entries at 1e6, a
+     single matrix): bit-identical to its plain version, and against
+     torch.linalg on the card within `EIG_TOL` (values, residual or
+     reconstruction, orthogonality, vectors by their gaps);
   4. main path: launch counters reset to 0, one extract + match, every
      main-path kernel must have launched; >= 90% known-shift inliers per
      pair; frame 0 on the CPU must pair >= 99% of its keypoints with the
@@ -75,12 +82,16 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      column best, and the compacted pairs) at that size; ms per pair of
      each public call and the kernels' device ms against their bounds;
   4c. two-view path: launch counters reset to 0, `two_view_reconstruct`;
-     kernels 1-4 and the octave kernel must have launched; the ground-truth
+     kernels 1-4, the octave kernel and the small-matrix kernel (once per
+     eigh or SVD call) must have launched; the ground-truth
      bounds of tests/test_twoview.py (matches > 100, inliers > 50%,
      rotation < 0.01 rad, translation direction < 0.02, RMS < 0.75 px,
      > 80% of points in the two depth bands); the same RANSAC draws through
      the port on the CPU give a rotation within 1e-3 rad of the card's; a
-     repeated card run on the same draws is bit-identical;
+     repeated card run on the same draws is bit-identical; an eager
+     `two_view_reconstruct` and the SLAM bootstrap's 256-hypothesis RANSAC
+     + `recover_pose` make no synchronising CUDA call (torch's sync debug
+     mode);
   4d. SLAM path (run last, after phase 5): launch counters reset to 0,
      `run_slam` on tests/test_loop_closure.py's out-and-back scene at
      480x640 (f = 566.67 px, noise 0.05, T = 24, SlamConfig with
@@ -181,8 +192,9 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      least time the card could take (`siftgpu_tpu_torch/bounds.py`);
   5b. bench.py's measurements (after 5, before 4d): launch counters reset
      to 0, `bench_torch.run` in process: bench.py's five sections at its
-     sizes and counts (the 640 batch, a 1088x1920 and a 2160x3840 frame, the
-     16384^2 match, the stage table) with bench_torch.py's gates (among
+     sizes (the 640 batch, a 1088x1920 and a 2160x3840 frame, the 16384^2
+     match, the stage table), nothing timed (`bench_torch.COUNTS`; the
+     timings are `python3 bench_torch.py`'s), with bench_torch.py's gates (among
      them, at 1088x1920 and 2160x3840, each call of kernels 1-3 and the
      octave kernel against its plain version); kernels 1-4 and the octave
      kernel must have launched; the bench's JSON line is
@@ -193,10 +205,18 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      (phase 4's 3 pairs), `slam._track_step_jit`, `_match_kf_jit` and
      `_loop_match_jit` (the first tracking steps of a run_slam on phase
      4d's scene against their live keyframes, its archive), `pnp.pnp_gn_jit`
-     (three of that run's PnP problems) and `ba.run_ba_jit` (its windowed
-     problems at two pow2 buckets): the eager call under torch's sync debug
-     mode "error" (no sync), the capture (seconds, pool MiB), three replays
-     on different inputs bit for bit against the eager function, replay
+     (three of that run's PnP problems), `ba.run_ba_jit` (its windowed
+     problems at two pow2 buckets), `twoview.two_view_reconstruct_jit`
+     (phase 4c's pair and two more of its texture seeds, each with its own
+     generator seed), `match.guided_match_descriptors_jit` (phase 4's
+     three pairs padded to 4096 as the facade pads them, under H, F and
+     H+F) and `redetect.describe_at_keypoints_jit` (phase 4's frames at
+     their extracted keypoints, kernel 5's grid constants uploaded first):
+     the first eager call under torch's sync debug mode "error" (no sync),
+     the capture (seconds, pool
+     MiB), three replays on different inputs bit for bit against the eager
+     function (a generator given to each call anew at its recorded state;
+     after the replay it must hold the eager call's end state), replay
      1's output unchanged after the later replays, the kernels' launch
      counters after a replay equal to those after an eager call, and
      eager against replay ms per call (CUDA events, median and p90 of 50)
@@ -207,7 +227,9 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
 
 Any failed check raises, a failed rank included.  The last three lines
 are the card's name and power limit, one JSON object with a record per
-kernel (`bench_launches`: its launches in one iteration of phase 5b's 640
+kernel (`launches`: in phase 4's main path, phase 4b's facade run for
+kernels 4g and 5, phase 4c's two-view call for the small-matrix kernel;
+`twoview_launches`: in phase 4c; `bench_launches`: its launches in one iteration of phase 5b's 640
 and 16k sections; `bench_frame_launches`: in the first calls of its 1080p
 and 4k sections; `slam_launches`: in phase 4d's first run;
 `online_launches`: in phase 4d's online-correction step; `large_launches`:
@@ -242,6 +264,9 @@ REPLACES = {
     "match_best2_gated": "siftgpu_tpu/ops/match_kernel.py:82",
     "sample_gradients": "siftgpu_tpu/ops/desc_sampler.py:102",
     "blur_octave_fused": "siftgpu_tpu/ops/pyramid_kernel.py:305",
+    # no TPU kernel: XLA's jnp.linalg.eigh / svd in the reference's geometry
+    "small_eig": "none (XLA jnp.linalg.eigh / svd: siftgpu_tpu/geometry/epipolar.py:58,63, "
+                 "siftgpu_tpu/geometry/pose.py:184,193)",
 }
 MAIN_KERNELS = ("detect_scores", "grad_stencil", "orient_sample", "match_best2",
                 "blur_octave_fused")
@@ -1005,6 +1030,160 @@ class Parity:
                   bounds.match_best2_work(*args[0].shape[:2], args[1].shape[1], args[0].shape[2],
                                           gate=args[6]), timed=timed)
 
+    def eig(self, x, kind, label, timed=True):
+        """small_eig's `kind` ("eigh" on x [..., n, n], "svd3" on x [..., 3,
+        3]) against its plain version, bit for bit, and against
+        torch.linalg on the same device within EIG_TOL (`eig_against_linalg`)."""
+        from siftgpu_tpu_torch import bounds
+        from siftgpu_tpu_torch.ops import small_eig as se
+
+        kern = se.eigh_sym if kind == "eigh" else se.svd3
+        plain = se.eigh_sym_plain if kind == "eigh" else se.svd3_plain
+        got = kern(x)
+        self.sync()
+        counts = []
+        ref = plain(x, counts)
+        # (a CPU rehearsal: the wrapper's CPU route is torch.linalg itself)
+        for name, g, r in zip(("w", "V") if kind == "eigh" else ("U", "S", "Vh"), got, ref):
+            if x.device.type == "cuda" and not torch_equal_bits(g, r):
+                raise AssertionError(f"small_eig {kind} ({label}, {tuple(x.shape)}): {name} "
+                                     "differs from the plain version")
+        worst = eig_against_linalg(x, ref, kind, f"small_eig {kind} ({label})")
+        n = x.shape[-1]
+        B = x.numel() // (n * n)
+        same = "identical to" if x.device.type == "cuda" else "(the CPU route: torch.linalg) and"
+        log(f"  small_eig {kind} ({label}, {tuple(x.shape)}): {same} the plain version; "
+            f"against torch.linalg {worst}; {counts[0][0]} convergence tests, {counts[0][1]} "
+            "rotations")
+        lib = (lambda: torch_linalg(kind)(x))
+        self.note("small_eig", 0.0, lambda: kern(x), lambda: plain(x),
+                  bounds.small_eig_work(kind, B, n, *counts[0]), lib, timed)
+
+
+# small_eig against torch.linalg (cuSOLVER on the card), per matrix, relative
+# to its Frobenius norm |M|: eigen- and singular values within 1e-5 |M|; the
+# residual |M v - w v| and the reconstruction |U S Vh - A| (largest entry)
+# within 1e-5 |M|; V^T V, U^T U, Vh Vh^T within 1e-5 of I; each vector
+# within sin(angle) <= 1e-5 |M| / gap of torch's, up to sign, where gap is
+# its value's distance to the neighbouring values (the Davis-Kahan bound of
+# a 1e-5 |M| perturbation; a repeated value bounds nothing).  An f32
+# solver's backward error is ~n eps |M| ~ 1e-6 |M| (the kernel's, from
+# float64, is its outputs' rounding): the budgets leave an order of magnitude.
+EIG_TOL = {"value": 1e-5, "residual": 1e-5, "orthogonal": 1e-5, "angle": 1e-5}
+
+
+def torch_linalg(kind):
+    import torch
+
+    return torch.linalg.eigh if kind == "eigh" else torch.linalg.svd
+
+
+def eig_against_linalg(x, got, kind, label, ref=None) -> str:
+    """Hold small_eig's output `got` for x to torch.linalg's (or to `ref`,
+    another solver's output in torch.linalg's convention) within EIG_TOL;
+    raise naming the first check that fails.  Returns the worst of each
+    check, as a line."""
+    import torch
+
+    f64 = torch.float64
+    n = x.shape[-1]
+    xs = x.reshape(-1, n, n).to(f64)
+    if kind == "eigh":   # the lower triangle, as both read it
+        low = torch.ones(n, n, dtype=torch.bool, device=x.device).tril()
+        xs = torch.where(low, xs, xs.transpose(-1, -2))
+    ref = [r.reshape(xs.shape[0], *r.shape[x.dim() - 2:]).to(f64)
+           for r in (torch_linalg(kind)(x) if ref is None else ref)]
+    out = [g.reshape(xs.shape[0], *g.shape[x.dim() - 2:]).to(f64) for g in got]
+    norm = torch.linalg.matrix_norm(xs).clamp(min=1e-30)               # [B]
+    eye = torch.eye(n, dtype=f64, device=x.device)
+
+    def sines(a, b, vals):
+        """sin of the angle between matching columns of a and b, times the
+        value's gap to its neighbours (in `vals`): against |M|, what
+        EIG_TOL["angle"] bounds."""
+        gap = torch.full_like(vals, float("inf"))
+        d = (vals[:, 1:] - vals[:, :-1]).abs()
+        gap[:, 1:] = torch.minimum(gap[:, 1:], d)
+        gap[:, :-1] = torch.minimum(gap[:, :-1], d)
+        a, b = a / a.norm(dim=-2, keepdim=True), b / b.norm(dim=-2, keepdim=True)
+        sin = (b - (a * b).sum(-2, keepdim=True) * a).norm(dim=-2)    # exact near 0
+        return sin * gap / norm[:, None]
+
+    if kind == "eigh":
+        (w, V), (wr, Vr) = out, ref
+        checks = {
+            "values": ((w - wr).abs().amax(-1) / norm, EIG_TOL["value"]),
+            "residual": ((xs @ V - V * w[:, None, :]).norm(dim=-2).amax(-1) / norm,
+                         EIG_TOL["residual"]),
+            "orthogonal": ((V.transpose(-1, -2) @ V - eye).abs().amax((-2, -1)),
+                           EIG_TOL["orthogonal"]),
+            "angle": (sines(V, Vr, wr).amax(-1), EIG_TOL["angle"]),
+        }
+        ordered = bool((w[:, 1:] >= w[:, :-1]).all())
+    else:
+        (U, S, Vh), (Ur, Sr, Vhr) = out, ref
+        checks = {
+            "values": ((S - Sr).abs().amax(-1) / norm, EIG_TOL["value"]),
+            "reconstruction": (((U * S[:, None, :]) @ Vh - xs).abs().amax((-2, -1)) / norm,
+                               EIG_TOL["residual"]),
+            "orthogonal": (torch.maximum((U.transpose(-1, -2) @ U - eye).abs().amax((-2, -1)),
+                                         (Vh @ Vh.transpose(-1, -2) - eye).abs().amax((-2, -1))),
+                           EIG_TOL["orthogonal"]),
+            "angle": (torch.maximum(sines(U, Ur, Sr), sines(Vh.transpose(-1, -2),
+                                                            Vhr.transpose(-1, -2), Sr)).amax(-1),
+                      EIG_TOL["angle"]),
+        }
+        ordered = bool((S[:, 1:] <= S[:, :-1]).all() and (S >= 0).all())
+    if not ordered:
+        raise AssertionError(f"{label}: values out of order")
+    worst = {k: float(v.max()) if v.numel() else 0.0 for k, (v, _) in checks.items()}
+    for k, (v, tol) in checks.items():
+        if not worst[k] <= tol:
+            raise AssertionError(f"{label}: {k} {worst[k]:.3g} > {tol} (matrix "
+                                 f"{int(v.argmax())} of {xs.shape[0]})")
+    return ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+
+
+def eig_edge_matrices(kind: str, n: int = 3, seed: int = 5) -> dict:
+    """small_eig's edge cases, f32, by name: for "eigh" (n x n) repeated
+    eigenvalues (I, diag(1, ..., 1, 2) rotated), the zero matrix, rank 1,
+    rank 2 and entries at 1e6; for "svd3" (3 x 3) I, diag(2, 2, 1), zero,
+    rank 1, rank 2, an essential matrix (singular values 1, 1, 0) and
+    entries at 1e6."""
+    rng = np.random.default_rng(seed)
+
+    def rotated(d):
+        q, _ = np.linalg.qr(rng.normal(size=(len(d), len(d))))
+        return (q * d) @ q.T
+
+    if kind == "eigh":
+        a, b = rng.normal(size=(2, n))
+        cases = {"identity": np.eye(n), "repeated": rotated([1.0] * (n - 1) + [2.0]),
+                 "zero": np.zeros((n, n)), "rank 1": np.outer(a, a),
+                 "rank 2": np.outer(a, a) - np.outer(b, b),
+                 "1e6 scale": 1e6 * rotated(rng.normal(size=n))}
+    else:
+        a, b, c = rng.normal(size=(3, 3))
+        cases = {"identity": np.eye(3), "repeated": np.diag([2.0, 2.0, 1.0]),
+                 "zero": np.zeros((3, 3)), "rank 1": np.outer(a, b),
+                 "rank 2": np.outer(a, b) + np.outer(c, a), "essential": rotated([1.0, 1.0, 0.0]),
+                 "1e6 scale": 1e6 * rng.normal(size=(3, 3))}
+    return {k: v.astype(np.float32) for k, v in cases.items()}
+
+
+def small_eig_edge_cases(dev, par) -> None:
+    """small_eig off the two-view path's shapes (`Parity.eig`): the
+    `eig_edge_matrices` of n = 3, 4, 9 and of the 3 x 3 SVD as one batch
+    each, then one matrix alone (a batch of one; unbatched for the SVD)."""
+    import torch
+
+    for kind, n in (("eigh", 3), ("eigh", 4), ("eigh", 9), ("svd3", 3)):
+        cases = eig_edge_matrices(kind, n)
+        x = torch.from_numpy(np.stack(list(cases.values()))).to(dev)
+        par.eig(x, kind, f"{n} x {n} edge cases {list(cases)}", timed=False)
+        one = x[-1:] if kind == "eigh" else x[-1]
+        par.eig(one.contiguous(), kind, f"{n} x {n}, {tuple(one.shape)} alone", timed=False)
+
 
 def octave_library(base, taps, gauss):
     """The octave's blurs by cuDNN: the 2 (L-1) convolutions of the plain
@@ -1726,31 +1905,43 @@ def twoview_truth(res, meta, label: str) -> None:
         raise AssertionError(f"two-view ({label}): a ground-truth bound failed")
 
 
+def stereo_pair(dev, h=H, w=W, seed=2):
+    """tests/test_twoview.py's calibrated two-plane stereo pair at h x w
+    (its intrinsics scaled to the width; its texture seed `seed`): (images
+    [2, h, w] and intrinsics [4] on dev, the fixture's meta)."""
+    import torch
+
+    from siftgpu_tpu_torch.oracle import fixtures
+
+    f = 180.0 * w / 200.0
+    intr = (f, f, w / 2.0, h / 2.0)
+    img0, img1, meta = fixtures.two_plane_stereo(h, w, intr, RVEC, T_GT, d_near=5.0,
+                                                 d_far=10.0, seed=seed)
+    return (torch.from_numpy(np.stack([img0, img1])).to(dev),
+            torch.tensor(intr, dtype=torch.float32, device=dev), meta)
+
+
 def twoview_phase(dev, sync, h=H, w=W, k=K):
     """Phase 4c: `two_view_reconstruct` (BASELINE config 4) on a calibrated
     two-plane stereo pair with launch counters reset before it.  Returns
-    the timed stage calls."""
+    the timed stage calls, the two-view call's launches and its small_eig
+    calls as (input, "eigh" | "svd3")."""
     import torch
 
     from siftgpu_tpu_torch import Features, MatchConfig, MatchResult, SiftConfig
     from siftgpu_tpu_torch.frontend.extract import extract_features
     from siftgpu_tpu_torch.frontend.match import match_descriptors
     from siftgpu_tpu_torch.geometry import epipolar, pose
-    from siftgpu_tpu_torch.ops import _build
+    from siftgpu_tpu_torch.ops import _build, small_eig
     from siftgpu_tpu_torch.optim import ba
-    from siftgpu_tpu_torch.oracle import fixtures
     from siftgpu_tpu_torch.pipeline import twoview
 
     log("phase 4c: two-view path (BASELINE config 4)")
-    f = 180.0 * w / 200.0   # tests/test_twoview.py's intrinsics, scaled to the width
-    intr = (f, f, w / 2.0, h / 2.0)
-    img0, img1, meta = fixtures.two_plane_stereo(h, w, intr, RVEC, T_GT, d_near=5.0,
-                                                 d_far=10.0, seed=2)
-    images = torch.from_numpy(np.stack([img0, img1])).to(dev)
-    intr_t = torch.tensor(intr, dtype=torch.float32, device=dev)
+    images, intr_t, meta = stereo_pair(dev, h, w)
+    f = float(intr_t[0])
     cfg = SiftConfig(height=h, width=w, max_keypoints=k)
     mcfg = MatchConfig(max_sift=k, max_match=k)
-    inputs, draws, ransac_args, pose_args, ba_args = [], [], [], [], []
+    inputs, draws, ransac_args, pose_args, ba_args, eighs, svds = [], [], [], [], [], [], []
     for kern in _build.KERNELS.values():
         kern.launches = 0
     with contextlib.ExitStack() as stack:
@@ -1759,15 +1950,20 @@ def twoview_phase(dev, sync, h=H, w=W, k=K):
         stack.enter_context(recording(epipolar, "ransac_from_samples", ransac_args))
         stack.enter_context(recording(pose, "recover_pose", pose_args))
         stack.enter_context(recording(ba, "run_ba", ba_args))
+        stack.enter_context(recording(small_eig, "eigh_sym", eighs))
+        stack.enter_context(recording(small_eig, "svd3", svds))
         res = twoview.two_view_reconstruct(images, intr_t, cfg, mcfg,
                                            torch.Generator(device=dev).manual_seed(7))
     sync()
     launches = {name: kern.launches for name, kern in _build.KERNELS.items()}
     log(f"  launches {launches}")
     if dev.type == "cuda":
-        missing = [n for n in MAIN_KERNELS if launches[n] == 0]  # extract + match
+        missing = [n for n in MAIN_KERNELS + ("small_eig",) if launches[n] == 0]
         if missing:
             raise AssertionError(f"two-view path did not launch {missing}")
+        if launches["small_eig"] != len(eighs) + len(svds):
+            raise AssertionError(f"small_eig: {launches['small_eig']} launches for "
+                                 f"{len(eighs) + len(svds)} calls")
 
     twoview_truth(res, meta, f"{h}x{w}, f = {f:g} px")
 
@@ -1791,6 +1987,23 @@ def twoview_phase(dev, sync, h=H, w=W, k=K):
         raise AssertionError("two-view: a repeated run on the same draws is not bit-identical")
 
     x0, x1, valid, _, thr = ransac_args[0]
+    if dev.type == "cuda":   # the geometry reads nothing on the host
+        gens = [torch.Generator(device=dev).manual_seed(s) for s in (7, 11)]
+        sites = sync_sites(lambda: twoview.two_view_reconstruct(images, intr_t, cfg, mcfg,
+                                                                gens[0]))
+
+        def bootstrap():   # pipeline/slam.py's two-view initialisation
+            draws = epipolar.sample_minimal_sets(valid, 256, gens[1])
+            rr = epipolar.ransac_from_samples(x0, x1, valid, draws, threshold=(2.0 / f) ** 2)
+            return pose.recover_pose(rr.E, x0, x1, rr.inliers)
+
+        boot = sync_sites(bootstrap)
+        log(f"  synchronising CUDA calls (torch's sync debug mode): {len(sites)} in an eager "
+            f"two_view_reconstruct, {len(boot)} in the SLAM bootstrap's 256-hypothesis "
+            f"sample_minimal_sets + ransac_from_samples + recover_pose{': ' if sites + boot else ''}"
+            f"{sites + boot}")
+        if sites or boot:
+            raise AssertionError("two-view: the geometry synchronised with the host")
     g = torch.Generator(device=dev).manual_seed(7)
     timed = {
         "extract (2 frames)": lambda: extract_features(images, cfg),
@@ -1803,7 +2016,7 @@ def twoview_phase(dev, sync, h=H, w=W, k=K):
         "two_view_reconstruct (whole)": lambda: twoview.two_view_reconstruct(
             images, intr_t, cfg, mcfg, torch.Generator(device=dev).manual_seed(7)),
     }
-    return timed
+    return timed, launches, [(a[0], "eigh") for a in eighs] + [(a[0], "svd3") for a in svds]
 
 
 def sync_warnings(fn) -> int:
@@ -3317,8 +3530,9 @@ def spatial_alone(device: str, scale: int = 1):
 
 def bench_phase(dev):
     """Phase 5b: bench_torch.py's sections in process, launch counters reset
-    first; at bench.py's sizes and counts on the card (at bench_torch.SMALL's
-    on the CPU).  Kernels 1-4 and the octave kernel must have launched.  Logs
+    first; at bench.py's sizes on the card with nothing timed
+    (bench_torch.COUNTS: its gates and first calls), at bench_torch.SMALL's
+    on the CPU.  Kernels 1-4 and the octave kernel must have launched.  Logs
     the bench's JSON line.  Returns each kernel's launches in one iteration
     of the 640 and 16k sections, in the first calls of the 1080p and 4k
     sections, and its largest error against its plain version in those two
@@ -3330,7 +3544,7 @@ def bench_phase(dev):
     log("phase 5b: bench_torch.py's sections (bench.py's workloads)")
     for kern in _build.KERNELS.values():
         kern.launches = 0
-    line = bench_torch.run(dev.type, sizes=bench_torch.SIZES if cuda else bench_torch.SMALL)
+    line = bench_torch.run(dev.type, sizes=bench_torch.COUNTS if cuda else bench_torch.SMALL)
     launches = {name: kern.launches for name, kern in _build.KERNELS.items()}
     log(f"  launches {launches}")
     if cuda:
@@ -3461,6 +3675,10 @@ def sync_sites(fn) -> list:
     import torch
 
     sites = []
+    with warnings.catch_warnings():   # the process's first switch to "warn" reports a
+        warnings.simplefilter("ignore")   # synchronising call of its own (torch 2.11)
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode(0)
 
     def record(message, category, filename, lineno, file=None, line=None):
         if "synchroniz" in str(message):
@@ -3502,14 +3720,46 @@ def main_path_syncs(device: str = "cuda", h=H, w=W, b=B, k=K) -> list:
     return sync_sites(main_path)
 
 
+def fresh_generators(call):
+    """A recorded call ((args, kwargs)) that draws from torch.Generators,
+    as a function returning (args, kwargs, generators): each generator
+    replaced by a new object at the state it had when recorded, so every
+    call of the entry point draws the same numbers."""
+    import torch
+
+    args, kw = call
+    states = [(g.device, g.get_state()) for g in (*args, *kw.values())
+              if isinstance(g, torch.Generator)]
+
+    def make():
+        it = iter(states)
+        gens = []
+
+        def new(x):
+            if not isinstance(x, torch.Generator):
+                return x
+            dev, st = next(it)
+            g = torch.Generator(device=dev)
+            g.set_state(st)
+            gens.append(g)
+            return g
+
+        return tuple(map(new, args)), {k: new(v) for k, v in kw.items()}, gens
+
+    return make
+
+
 def graph_case(name, jit, eager, inputs, dev, sync, card=""):
     """One captured entry point against its eager function on `inputs`
-    ((args, kwargs) of one signature, at least three): the eager call under
-    the sync debug mode "error", the capture, every replay bit for bit
+    ((args, kwargs) of one signature, at least three): the first eager call
+    under the sync debug mode "error", the capture, every replay bit for bit
     against the eager call on the same input, replay 1's output unchanged
     after the later replays, the launch counters after one replay equal to
     those after one eager call, and eager against replay ms per call
-    (logged with `card`, the card's name and power limit)."""
+    (logged with `card`, the card's name and power limit).  An input's
+    torch.Generators are given to each call as new objects at their
+    recorded state (`fresh_generators`): a replay must draw what the eager
+    call draws and leave its generator in the eager call's end state."""
     import torch
 
     from siftgpu_tpu_torch.ops import _build
@@ -3519,7 +3769,13 @@ def graph_case(name, jit, eager, inputs, dev, sync, card=""):
         raise AssertionError(f"{name}: {len(inputs)} inputs, three needed")
     if len({jit.signature(*a, **kw)[0] for a, kw in inputs}) != 1:
         raise AssertionError(f"{name}: the inputs do not share one signature")
-    a0, kw0 = inputs[0]
+    calls = [fresh_generators(c) for c in inputs]
+
+    def run(fn, i):
+        a, kw, gens = calls[i]()
+        return fn(*a, **kw), [g.get_state() for g in gens]
+
+    a0, kw0, _ = calls[0]()
     if cuda:
         torch.cuda.set_sync_debug_mode("error")
     try:
@@ -3528,21 +3784,26 @@ def graph_case(name, jit, eager, inputs, dev, sync, card=""):
     finally:
         if cuda:
             torch.cuda.set_sync_debug_mode(0)
-    want = [eager(*a, **kw) for a, kw in inputs]
-    got = [jit(*a0, **kw0)]
-    kept = _pytree_clone(got[0])
-    got += [jit(*a, **kw) for a, kw in inputs[1:]]
+    want = [run(eager, i) for i in range(len(inputs))]
+    got = [run(jit, 0)]
+    kept = _pytree_clone(got[0][0])
+    got += [run(jit, i) for i in range(1, len(inputs))]
     sync()
-    differ = [i for i, (g, e) in enumerate(zip(got, want)) if not same_tree(g, e)]
+    differ = [i for i, ((g, _), (e, _)) in enumerate(zip(got, want)) if not same_tree(g, e)]
     if differ:
         raise AssertionError(f"{name}: replays {differ} differ from the eager calls")
-    if not same_tree(got[0], kept):
+    if not same_tree(got[0][0], kept):
         raise AssertionError(f"{name}: replay 1's output changed under later replays")
+    moved = [i for i, ((_, g), (_, e)) in enumerate(zip(got, want))
+             if not all(torch.equal(x, y) for x, y in zip(g, e))]
+    if moved:
+        raise AssertionError(f"{name}: after replays {moved} a generator's state differs from "
+                             "its state after the eager call")
 
     def counted(fn):
         for kern in _build.KERNELS.values():
             kern.launches = 0
-        fn(*a0, **kw0)
+        run(fn, 0)
         sync()
         return {n: kern.launches for n, kern in _build.KERNELS.items() if kern.launches}
 
@@ -3565,8 +3826,9 @@ def graph_case(name, jit, eager, inputs, dev, sync, card=""):
         rec.update(device_ops=ops, eager_device_ms=dev_ms, capture_s=cap.seconds,
                    pool_mib=cap.pool_bytes / 2 ** 20, eager_ms=e50, eager_p90_ms=e90,
                    replay_ms=r50, replay_p90_ms=r90)
+        gen_note = ", generator states equal" if any(g for _, g in want) else ""
         log(f"  {name} ({card}): captured in {cap.seconds:.3f} s, pool {rec['pool_mib']:.1f} MiB; "
-            f"{len(inputs)} replays bit-identical to eager, replay 1 kept; launches per call "
+            f"{len(inputs)} replays bit-identical to eager{gen_note}, replay 1 kept; launches per call "
             f"{n_eager}; eager: {ops} device ops, {dev_ms:.4f} ms of device time; ms per call "
             f"(median/p90 of {GRAPH_TIMED_CALLS}) eager {e50:.4f}/{e90:.4f}, replay "
             f"{r50:.4f}/{r90:.4f}")
@@ -3580,8 +3842,9 @@ def graphs_phase(dev, sync, images, feats, h=H, w=W, k=K):
     """Phase 5c (after 5b): each captured entry point (`extract_features_jit`,
     `match_descriptors_jit` and `match_descriptors_batch_jit`,
     `slam._track_step_jit`, `_match_kf_jit`, `_loop_match_jit`,
-    `pnp.pnp_gn_jit`, `ba.run_ba_jit`) against its eager function
-    (`graph_case`).  The inputs: phase 4's four frames one at a time and as
+    `pnp.pnp_gn_jit`, `ba.run_ba_jit`, `twoview.two_view_reconstruct_jit`,
+    `match.guided_match_descriptors_jit`, `redetect.describe_at_keypoints_jit`)
+    against its eager function (`graph_case`).  The inputs: phase 4's four frames one at a time and as
     a batch of 4 (and that batch rolled); phase 4's three pairs, alone and
     as a batch of 3 (rolled); and from one `run_slam` on phase 4d's loop
     scene, recorded: its first tracking steps of one keyframe count against
@@ -3589,7 +3852,10 @@ def graphs_phase(dev, sync, images, feats, h=H, w=W, k=K):
     descriptors, three PnP problems padded with weight-0 rows to one pow2
     bucket, and its windowed BA problems padded to pow2 observation
     buckets, the two fullest buckets (cameras nudged where a bucket holds
-    fewer than three problems).  Before them the main path's synchronising
+    fewer than three problems); phase 4c's stereo pair and the same scene
+    with texture seeds 3 and 4, generator seeds 7, 8, 9; phase 4's three
+    pairs padded to the facade's 4096 rows under H, F and H+F (hdist 3,
+    fdist 2); phase 4's first three frames at their own keypoints.  Before them the main path's synchronising
     calls per iteration are counted (`main_path_syncs`); after them a
     capture with a host sync inside must raise, and every capture is
     released.  Returns one record per entry point and signature."""
@@ -3597,10 +3863,10 @@ def graphs_phase(dev, sync, images, feats, h=H, w=W, k=K):
 
     from siftgpu_tpu_torch import MatchConfig, SiftConfig
     from siftgpu_tpu_torch.core import graphs
-    from siftgpu_tpu_torch.frontend import extract, match
+    from siftgpu_tpu_torch.frontend import describe, extract, match, redetect
     from siftgpu_tpu_torch.optim import ba, pnp
     from siftgpu_tpu_torch.oracle import fixtures
-    from siftgpu_tpu_torch.pipeline import slam
+    from siftgpu_tpu_torch.pipeline import slam, twoview
 
     log("phase 5c: the captured entry points (CUDA graphs, core/graphs.py) against the eager port")
     cuda = dev.type == "cuda"
@@ -3677,6 +3943,31 @@ def graphs_phase(dev, sync, images, feats, h=H, w=W, k=K):
         calls = calls[:3]
         calls += [nudged_ba(calls[0], s) for s in range(3 - len(calls))]
         case(f"run_ba_jit, {mb} cameras, {nb} observations", ba.run_ba_jit, ba.run_ba, calls)
+
+    # ---- two-view, guided matching and descriptor-only mode ----
+    pairs = [stereo_pair(dev, h, w, seed) for seed in (2, 3, 4)]    # phase 4c's, then two more
+    case(f"two_view_reconstruct_jit, 2 x {h}x{w}", twoview.two_view_reconstruct_jit,
+         twoview.two_view_reconstruct,
+         [((imgs, intr, cfg, mcfg, torch.Generator(device=dev).manual_seed(seed)), {})
+          for (imgs, intr, _), seed in zip(pairs, (7, 8, 9))])
+    n = 4096                    # the facade's padded sets (SiftMatchTPU(max_sift=4096))
+    pad = lambda t: torch.cat([t, t.new_zeros(n - t.shape[0], *t.shape[1:])])
+    loc = torch.stack([feats.x, feats.y], -1)
+    Hm = torch.tensor([[1.0, 0.0, SHIFT[0]], [0.0, 1.0, SHIFT[1]], [0.0, 0.0, 1.0]], device=dev)
+    Fm = torch.from_numpy(cross(*SHIFT)).to(dev)
+    gkw = dict(hdist_max=3.0, fdist_max=2.0, cfg=MatchConfig(max_sift=n, max_match=n))
+    for label, hf in (("H", (Hm, None)), ("F", (None, Fm)), ("H+F", (Hm, Fm))):
+        case(f"guided_match_descriptors_jit, {label}, {n}-padded sets",
+             match.guided_match_descriptors_jit, match.guided_match_descriptors,
+             [((pad(d[i]), pad(d[i + 1]), pad(loc[i]), pad(loc[i + 1]), *hf, pad(m[i]),
+                pad(m[i + 1])), gkw) for i in range(B - 1)])
+    kp = torch.stack([feats.x, feats.y, feats.sigma, feats.theta], -1)
+    for name in ("t", "wrc", "gw", "W2"):   # kernel 5's grid constants: one upload, a sync
+        describe._on_device(name, cfg, dev)
+    case(f"describe_at_keypoints_jit, 1 x {h}x{w}, {k} keypoints",
+         redetect.describe_at_keypoints_jit, redetect.describe_at_keypoints,
+         [((images[i:i + 1], kp[i:i + 1], cfg), {}) for i in range(3)])
+
     if cuda:   # no fallback: a capture that fails raises, naming the entry point
         try:
             graphs.graphed(host_sync, "host_sync_jit")(torch.ones(4, device=dev))
@@ -3688,7 +3979,9 @@ def graphs_phase(dev, sync, images, feats, h=H, w=W, k=K):
             raise AssertionError("a capture with a host sync inside did not raise")
     for jit in (extract.extract_features_jit, match.match_descriptors_jit,
                 match.match_descriptors_batch_jit, slam._track_step_jit, slam._match_kf_jit,
-                slam._loop_match_jit, pnp.pnp_gn_jit, ba.run_ba_jit):
+                slam._loop_match_jit, pnp.pnp_gn_jit, ba.run_ba_jit,
+                twoview.two_view_reconstruct_jit, match.guided_match_descriptors_jit,
+                redetect.describe_at_keypoints_jit):
         jit.captures.clear()    # the later phases run with the memory they had before
     if cuda:
         log(f"  {card_line()}")
@@ -3811,8 +4104,14 @@ def run(device: str, h=H, w=W, b=B, k=K):
     clock.mark("phase 4b2")
 
     # ---- 4c. the two-view path, counted ----
-    twoview_calls = twoview_phase(dev, sync, h, w, k)
+    twoview_calls, twoview_launches, eig_calls = twoview_phase(dev, sync, h, w, k)
+    launches["small_eig"] = twoview_launches["small_eig"]     # its path is two-view's geometry
     clock.mark("phase 4c")
+    log("phase 3, small_eig: on phase 4c's recorded calls, then at edge cases")
+    for x, kind in eig_calls:
+        par.eig(x, kind, "two-view path")
+    small_eig_edge_cases(dev, par)
+    clock.mark("phase 3, small_eig")
 
 
     # ---- 5. times ----
@@ -3854,11 +4153,13 @@ def run(device: str, h=H, w=W, b=B, k=K):
             lb = [c.lib for c in calls if c.lib is not None]   # none where a call samples nothing
             # CUDA events around back-to-back calls (the host's launch cost
             # included), plain, kernel, library, kernel, library, plain,
-            # summed over the path's calls; then device time alone
+            # summed over the path's calls; then device time alone (a plain
+            # version slower than 100 ms a pass in one profiled round: its
+            # trace of ~10^5 small ops takes tens of seconds to read)
             t = lambda fns: sum(time_ms(fn, sync, 5) for fn in fns)
             p1, k1, l1, k2, l2, p2 = (t(fns) for fns in (pl, kf, lb, kf, lb, pl))
-            rec.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                       device_ms=device_ms(kf, sync), plain_device_ms=device_ms(pl, sync))
+            rec.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, device_ms=device_ms(kf, sync),
+                       plain_device_ms=device_ms(pl, sync, 1 if p1 > 100.0 else 3))
             if lb:
                 rec.update(library_ms=(l1 + l2) / 2, library_device_ms=device_ms(lb, sync))
             log(f"  {name}: kernel {rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), plain "
@@ -3903,10 +4204,12 @@ def run(device: str, h=H, w=W, b=B, k=K):
             par.err[name] = max(par.err[name], e)
     for rec in records:
         name = rec["name"]
-        rec.update(bench_launches=bench_launches[name],
+        rec.update(twoview_launches=twoview_launches[name],
+                   bench_launches=bench_launches[name],
                    bench_frame_launches=bench_frame_launches[name],
                    slam_launches=slam_launches[name], cli_launches=cli_launches[name],
-                   dist_launches=dist_launches[name], spatial_launches=spatial_launches[name],
+                   dist_launches=dist_launches.get(name, 0),
+                   spatial_launches=spatial_launches.get(name, 0),
                    large_launches=large_launches[name], online_launches=online_launches[name],
                    dryrun_launches=dryrun_launches.get(name, 0), max_abs_err=par.err[name])
         if name in large_stats:
@@ -3924,7 +4227,7 @@ def main() -> int:
     try:  # importing the ops modules registers their kernels in _build.KERNELS
         from siftgpu_tpu_torch.ops import (_build, desc_sampler, detect_scores,  # noqa: F401
                                            grad_stencil, kp_engine, match_kernel,
-                                           pyramid_kernel)
+                                           pyramid_kernel, small_eig)
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 1

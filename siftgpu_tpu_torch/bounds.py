@@ -8,7 +8,7 @@ operations it does on these inputs over the card's peak rate for their type
 data (masked keypoints, orientation slots that are sampled), the counts are
 this call's.  Published peaks of one H100 SXM at its full 700 W (NVIDIA's
 data sheet, dense): 3.35 TB/s of HBM, 67 TFLOP/s in f32 outside the tensor
-cores, 1,979 TOP/s in int8.
+cores, 34 TFLOP/s in f64 outside the tensor cores, 1,979 TOP/s in int8.
 
 Each `*_work` function takes a call's shapes and returns a `Work`; `bound`
 turns a list of them into (ms, "bytes" | "operations").  Operation counts
@@ -23,10 +23,10 @@ from typing import Dict, Iterable, NamedTuple, Optional, Tuple
 
 __all__ = ["Work", "PEAK_BYTES_PER_S", "PEAK_OPS_PER_S", "bound", "blur_octave_work",
            "detect_scores_work", "grad_stencil_work", "orient_sample_work",
-           "match_best2_work", "sample_gradients_work"]
+           "match_best2_work", "sample_gradients_work", "small_eig_work"]
 
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"f32": 67e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12, "int8": 1979e12}
 
 F32, BF16, I32, U8 = 4, 2, 4, 1
 
@@ -132,3 +132,24 @@ def sample_gradients_work(P: int, H: int, W: int, N: int, G2: int,
     grads = min(2 * P * H * W * BF16, 2 * 4 * n * G2 * BF16)
     read = 2 * n * G2 * F32 + N * I32 + grads
     return Work(read + 2 * n * G2 * F32, {"f32": (SAMPLE_OPS - 8 - 5) * n * G2})
+
+
+def small_eig_work(kind: str, B: int, n: int, tests: int, rotations: int) -> Work:
+    """The small-matrix kernel (`ops/small_eig.py`): B matrices of n x n f32
+    read (3 x 3 for "svd3"); "eigh" writes w [B, n] and V [B, n, n], "svd3"
+    U, S and Vh.  In f64, the Jacobi work this input needs (`tests`
+    convergence tests and `rotations` rotations, summed over the batch, as
+    the plain version counts them): a test sums the squares of the upper
+    triangle and the diagonal (2 ops an entry) and compares (2); a rotation
+    forms theta, t, c, s (15) and updates two rows and two columns of A and
+    two columns of V (6 ops an entry each: 18 n).  Per matrix the load and
+    symmetrisation, the stable sort and the signs (3 n^2); "svd3" adds A^T A
+    (45), A V (45) and U's columns, norms, the cross product and S (60)."""
+    per_test = 2 * (n * (n - 1) // 2 + n) + 2
+    ops = tests * per_test + rotations * (15 + 18 * n) + B * 3 * n * n
+    if kind == "eigh":
+        nbytes = B * (n * n + n + n * n) * F32
+    else:
+        ops += B * (45 + 45 + 60)
+        nbytes = B * (9 + 9 + 3 + 9) * F32
+    return Work(nbytes, {"f64": ops})

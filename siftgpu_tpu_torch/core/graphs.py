@@ -14,6 +14,16 @@ optional argument is None, and every other argument by value: configs
 `huber_px`) are static, as jit's `static_argnums` makes them.  An argument
 that cannot be hashed raises.  Like jit's cache, the cache is unbounded.
 
+A `torch.Generator` argument (the counterpart of jit's PRNG key) is state,
+not part of the signature beyond its device: a new generator object
+replays the same capture.  The capture draws from a generator of its own,
+registered with the graph (`CUDAGraph.register_generator_state`); each
+call copies the caller's generator state into it, replays, and copies the
+advanced state back, so a replay from state s draws what an eager call
+from s draws and leaves the caller's generator where the eager call
+leaves it.  The warm-up calls draw from the capture's generator, never
+from the caller's.
+
 The first call of a signature runs fn twice on a side stream (PyTorch's
 CUDA-graph recipe: these calls build the kernels at first use, let cuDNN
 pick its algorithms, make cuBLAS's workspaces and the per-device constants
@@ -66,11 +76,23 @@ def device_constant(key, device, make: Callable[[], np.ndarray]) -> torch.Tensor
     return t
 
 
+def _device(x) -> torch.device:
+    """A tensor's or generator's device, with a CUDA index always stated."""
+    d = x.device
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
 def _flatten(x, leaves: list, where: str):
-    """x's structure as a hashable key, its tensors appended to `leaves`."""
+    """x's structure as a hashable key, its tensors and generators appended
+    to `leaves`."""
     if isinstance(x, torch.Tensor):
         leaves.append(x)
         return (torch.Tensor, tuple(x.shape), x.dtype, x.device)
+    if isinstance(x, torch.Generator):
+        leaves.append(x)
+        return (torch.Generator, _device(x))
     if isinstance(x, (tuple, list)):
         return (type(x), tuple(_flatten(v, leaves, where) for v in x))
     try:
@@ -82,8 +104,9 @@ def _flatten(x, leaves: list, where: str):
 
 
 def _rebuild(x, tensors):
-    """x with its tensors replaced, in order, by those of the iterator."""
-    if isinstance(x, torch.Tensor):
+    """x with its tensors and generators replaced, in order, by those of
+    the iterator."""
+    if isinstance(x, (torch.Tensor, torch.Generator)):
         return next(tensors)
     if isinstance(x, (tuple, list)):
         vals = [_rebuild(v, tensors) for v in x]
@@ -97,7 +120,7 @@ class Capture:
 
     def __init__(self, graph, inputs, out_tree, outputs, tally, seconds, pool_bytes):
         self.graph = graph
-        self.inputs = inputs          # static input buffers, in argument order
+        self.inputs = inputs          # static input buffers and generators, in argument order
         self.out_tree = out_tree      # fn's output, its tensors those of `outputs`
         self.outputs = outputs
         self.tally = tally            # Kernel -> launches in one replay
@@ -106,13 +129,20 @@ class Capture:
         self.done = None              # event after the last replay's clones
 
     def run(self, leaves):
-        dev = self.inputs[0].device
+        dev = next(t.device for t in self.inputs if isinstance(t, torch.Tensor))
         stream = torch.cuda.current_stream(dev)
         if self.done is not None:
             stream.wait_event(self.done)
+        gens = []
         for dst, src in zip(self.inputs, leaves):
-            dst.copy_(src)
+            if isinstance(dst, torch.Generator):
+                dst.set_state(src.get_state())
+                gens.append((dst, src))
+            else:
+                dst.copy_(src)
         self.graph.replay()
+        for own, caller in gens:   # the caller's generator advances as after an eager call
+            caller.set_state(own.get_state())
         outs = [t.clone() for t in self.outputs]
         self.done = torch.cuda.Event()
         self.done.record(stream)
@@ -133,7 +163,8 @@ class Graphed:
         self._lock = threading.Lock()
 
     def signature(self, *args, **kwargs):
-        """(key, bound arguments, tensors in argument order) of a call."""
+        """(key, bound arguments, tensors and generators in argument order)
+        of a call."""
         bound = self._sig.bind(*args, **kwargs)
         bound.apply_defaults()
         leaves: list = []
@@ -142,13 +173,13 @@ class Graphed:
 
     def __call__(self, *args, **kwargs):
         key, bound, leaves = self.signature(*args, **kwargs)
-        devices = {t.device for t in leaves}
-        if len(devices) > 1:
+        devices = {_device(t) for t in leaves}
+        if len(devices) > 1:   # a generator counts with the tensors
             raise ValueError(f"{self.__name__}: tensors on more than one device "
                              f"({', '.join(sorted(map(str, devices)))})")
         if not devices or next(iter(devices)).type != "cuda":
             return self.fn(*args, **kwargs)
-        dev = leaves[0].device
+        dev = next(iter(devices))
         with self._lock, torch.cuda.device(dev):
             cap = self.captures.get(key)
             if cap is None:
@@ -156,9 +187,16 @@ class Graphed:
             return cap.run(leaves)
 
     def _capture(self, key, bound, leaves) -> Capture:
-        dev = leaves[0].device
+        dev = _device(leaves[0])
         t0 = time.perf_counter()
-        inputs = [torch.empty(t.shape, dtype=t.dtype, device=dev).copy_(t) for t in leaves]
+        inputs = []
+        for t in leaves:
+            if isinstance(t, torch.Generator):
+                own = torch.Generator(device=dev)
+                own.set_state(t.get_state())
+                inputs.append(own)
+            else:
+                inputs.append(torch.empty(t.shape, dtype=t.dtype, device=dev).copy_(t))
         it = iter(inputs)
         args = inspect.BoundArguments(
             self._sig, {k: _rebuild(v, it) for k, v in bound.arguments.items()})
@@ -174,6 +212,9 @@ class Graphed:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
+        for g in inputs:
+            if isinstance(g, torch.Generator):
+                graph.register_generator_state(g)
         try:
             with _build.tally_launches() as tally, torch.cuda.graph(graph):
                 out = call()

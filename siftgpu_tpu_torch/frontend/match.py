@@ -39,7 +39,8 @@ from ..core.precision import full_f32
 __all__ = [
     "MatchResult", "match_descriptors", "match_descriptors_batch",
     "match_descriptors_jit", "match_descriptors_batch_jit",
-    "guided_match_descriptors", "gate_operands", "gate_thresholds",
+    "guided_match_descriptors", "guided_match_descriptors_jit", "gate_operands",
+    "gate_thresholds",
 ]
 
 
@@ -258,3 +259,8 @@ def guided_match_descriptors(
     keep = gate_matrix(gate, rows[None], cols[None],
                        *gate_thresholds(hdist_max, fdist_max))[0]
     return _select(_float_sim(d0, d1), mask0, mask1, cfg, keep)
+
+
+# the reference's jitted `guided_match_descriptors` (hdist_max, fdist_max and
+# cfg static; H and F in the signature by None-ness)
+guided_match_descriptors_jit = graphed(guided_match_descriptors, "guided_match_descriptors_jit")

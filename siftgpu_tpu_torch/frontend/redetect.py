@@ -10,7 +10,9 @@ describes the full list on every octave and keeps the rows assigned to each
 (`describe.describe_octaves`: one `ops/desc_sampler.py` call per octave into
 a shared buffer, one binning pass).  Its octave-local coordinates divide by
 its own octave's scale, a power of two, so they are the bits the
-reference's per-octave scalar arithmetic gives.
+reference's per-octave scalar arithmetic gives.  `describe_at_keypoints_jit`
+is the reference's jitted `describe_at_keypoints` (cfg static), captured once
+per signature on CUDA inputs (`core/graphs.py`).
 """
 
 from __future__ import annotations
@@ -21,10 +23,11 @@ import numpy as np
 import torch
 
 from ..core.config import SiftConfig
+from ..core.graphs import graphed
 from . import describe, orient, pyramid
 from .extract import Features
 
-__all__ = ["describe_at_keypoints"]
+__all__ = ["describe_at_keypoints", "describe_at_keypoints_jit"]
 
 # f32 ln 2: the reference's log2 is log(x) / log(2) in f32
 _LN2 = float(np.float32(math.log(2.0)))
@@ -67,3 +70,6 @@ def describe_at_keypoints(images: torch.Tensor, keypoints: torch.Tensor,
 
     return Features(x=x, y=y, sigma=sig, theta=th, response=torch.zeros_like(x),
                     octave=octave, desc=desc, mask=valid)
+
+
+describe_at_keypoints_jit = graphed(describe_at_keypoints, "describe_at_keypoints_jit")

@@ -4,8 +4,9 @@ Port of `siftgpu_tpu/geometry/pose.py`.  Rotations use the so(3)
 exponential map (Rodrigues); world-to-camera convention x_cam = R x_world +
 t.  E decomposition follows Hartley & Zisserman; cheirality (positive depth
 in both views) selects among the four (R, t) candidates.  The reference's
-`vmap`ped small solves are batched `torch.linalg.eigh` / `svd` calls here
-([4, N, 4, 4] in `recover_pose`).  Matmuls run with TF32 off (`full_f32`),
+`vmap`ped small solves are batched `ops.small_eig` calls here ([4, N, 4, 4]
+in `recover_pose`: the sync-free kernel on the card, `torch.linalg` on the
+CPU).  Matmuls run with TF32 off (`full_f32`),
 the reference's "highest".  Eigen- and singular-vector signs are arbitrary
 in both frameworks: `triangulate` divides by the fourth coordinate and
 `decompose_essential` fixes U and V^T to det +1, so neither output depends
@@ -16,9 +17,12 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from ..core.graphs import device_constant
 from ..core.precision import full_f32
+from ..ops import small_eig
 
 __all__ = [
     "exp_so3", "log_so3", "hat",
@@ -177,20 +181,22 @@ def triangulate(R0, t0, R1, t1, x0: torch.Tensor, x1: torch.Tensor) -> torch.Ten
         dim=-2,
     )                                                                 # [..., N, 4, 4]
     with full_f32():
-        _, vecs = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+        _, vecs = small_eig.eigh_sym(A.transpose(-1, -2) @ A)
     X = vecs[..., 0]
     w = X[..., 3:]
     return X[..., :3] / torch.where(w.abs() < 1e-12, torch.full_like(w, 1e-12), w)
 
 
+_W = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], np.float32)
+
+
 def decompose_essential(E: torch.Tensor):
     """E -> 4 candidate (R, t) with |t| = 1.  Returns (Rs [4,3,3], ts [4,3])."""
-    U, _, Vt = torch.linalg.svd(E)
+    U, _, Vt = small_eig.svd3(E)
     # proper rotations
     U = U * torch.sign(torch.linalg.det(U))
     Vt = Vt * torch.sign(torch.linalg.det(Vt))
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    W = device_constant("essential_W", E.device, lambda: _W).to(E.dtype)
     with full_f32():
         Ra = U @ W @ Vt
         Rb = U @ W.T @ Vt
@@ -219,6 +225,6 @@ def recover_pose(E: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor,
         z1 = (X @ Rs.transpose(-1, -2) + ts[:, None, :])[..., 2]
     goods = (X[..., 2] > 1e-6) & (z1 > 1e-6) & w.to(torch.bool)
     counts = goods.sum(-1)
-    best = torch.argmax(counts)
-    return TwoViewPose(R=Rs[best], t=ts[best], points=X[best], good=goods[best],
-                       num_good=counts[best].to(torch.int32))
+    best = torch.argmax(counts).reshape(1)    # a 0-d index would be read on the host
+    return TwoViewPose(R=Rs[best][0], t=ts[best][0], points=X[best][0], good=goods[best][0],
+                       num_good=counts[best][0].to(torch.int32))

@@ -6,6 +6,9 @@ is fixed-shape: the match buffer defines the (padded) point set and validity
 flows through weights, so nothing waits on the host between the stages.
 The RANSAC draws come from a `torch.Generator` on the images' device; pass
 `samples` to `two_view_from_features` to score given draws instead.
+`two_view_reconstruct_jit` is the reference's jitted `two_view_reconstruct`:
+captured once per signature on CUDA inputs (`core/graphs.py`; the
+generator is state, registered with the graph, not part of the signature).
 """
 
 from __future__ import annotations
@@ -15,12 +18,14 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.config import MatchConfig, SiftConfig
+from ..core.graphs import graphed
 from ..frontend.extract import Features, extract_features
 from ..frontend.match import MatchResult, match_descriptors
 from ..geometry import epipolar, pose
 from ..optim import ba
 
-__all__ = ["TwoViewResult", "two_view_from_features", "two_view_reconstruct"]
+__all__ = ["TwoViewResult", "two_view_from_features", "two_view_reconstruct",
+           "two_view_reconstruct_jit"]
 
 
 class TwoViewResult(NamedTuple):
@@ -96,3 +101,6 @@ def two_view_reconstruct(images: torch.Tensor, intr: torch.Tensor, cfg: SiftConf
     feats = extract_features(images, cfg)
     res = match_descriptors(feats.desc[0], feats.desc[1], feats.mask[0], feats.mask[1], mcfg)
     return two_view_from_features(feats, res, intr, generator)
+
+
+two_view_reconstruct_jit = graphed(two_view_reconstruct, "two_view_reconstruct_jit")

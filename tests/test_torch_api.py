@@ -32,6 +32,7 @@ from siftgpu_tpu_torch.pipeline.api import ComboSiftTPU, SiftMatchTPU, SiftTPU
 
 from helpers import angdiff, desc_cosine
 from test_torch_extract import _pair
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ARGVS = [
     ["-fo", "-1", "-d", "4", "-t", "0.01", "-e", "8", "-m", "-s", "-maxd", "1600",

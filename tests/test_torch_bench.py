@@ -37,6 +37,7 @@ from siftgpu_tpu_torch.frontend.match import match_descriptors
 from siftgpu_tpu_torch.oracle import fixtures
 
 from test_torch_extract import check_features
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")

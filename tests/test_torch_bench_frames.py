@@ -9,6 +9,7 @@ import torch
 import bench_torch as bt
 from siftgpu_tpu_torch import extract_features
 from siftgpu_tpu_torch.ops import detect_scores, kp_engine, pyramid_kernel
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 

@@ -36,6 +36,16 @@ CASES = {
     # than 4 taps per sample
     "sample_gradients": (bounds.sample_gradients_work(3, 120, 160, 512, 256),
                          1_048_576 + 2048 + 230_400 + 1_048_576, {"f32": 32 * 131_072}, "bytes"),
+    # the two-view path's 512 minimal-set 9 x 9 eighs (3392 convergence tests
+    # of 2 x (36 + 9) + 2 ops, 103,680 rotations of 15 + 18 x 9): M read, w
+    # and V written; per matrix 3 x 81 for the load, sort and signs
+    "small_eig eigh": (bounds.small_eig_work("eigh", 512, 9, 3392, 103_680),
+                       512 * (81 + 9 + 81) * 4,
+                       {"f64": 3392 * 92 + 103_680 * 177 + 512 * 243}, "operations"),
+    # its 512 3 x 3 SVDs (2038 tests of 14 ops, 4578 rotations of 69): A
+    # read, U, S, Vh written; per matrix 27 + 150
+    "small_eig svd3": (bounds.small_eig_work("svd3", 512, 3, 2038, 4578),
+                       512 * 30 * 4, {"f64": 2038 * 14 + 4578 * 69 + 512 * 177}, "bytes"),
 }
 
 
@@ -46,7 +56,7 @@ def test_work_counts(name):
     assert work.ops == ops
     ms, got_by = bounds.bound([work])
     t_bytes = nbytes / 3.35e12
-    t_ops = sum(n / {"f32": 67e12, "int8": 1979e12}[k] for k, n in ops.items())
+    t_ops = sum(n / {"f32": 67e12, "f64": 34e12, "int8": 1979e12}[k] for k, n in ops.items())
     assert got_by == by
     assert ms == pytest.approx(max(t_bytes, t_ops) * 1e3, rel=1e-12)
 

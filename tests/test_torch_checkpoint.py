@@ -25,22 +25,12 @@ from siftgpu_tpu_torch import MatchConfig, SiftConfig
 from siftgpu_tpu_torch.geometry import align
 from siftgpu_tpu_torch.oracle import fixtures
 from siftgpu_tpu_torch.pipeline import checkpoint, slam
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 H, W = 144, 192
 INTR = (170.0, 170.0, W / 2.0, H / 2.0)
 T, TC = 10, 7
 SCFG = dict(kf_min_inliers=60, kf_flow_px=8.0, init_flow_px=10.0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """The loop runs thousands of tiny ops per frame: on the CPU beside the
-    suite's other workers, intra-op threads only contend (13 s alone became
-    640 s in a 6-worker run), so each test here runs on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _scene():

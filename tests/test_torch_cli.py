@@ -46,19 +46,11 @@ from siftgpu_tpu_torch.oracle import fixtures
 from siftgpu_tpu_torch.pipeline import api, checkpoint, cli, siftio, slam, twoview
 
 from test_torch_api import ARGVS, check_keys
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 STORE_KEYS = {"x": np.float32, "y": np.float32, "sigma": np.float32, "theta": np.float32,
               "response": np.float32, "octave": np.int32, "desc": np.uint8, "mask": np.bool_}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """The SLAM runs on one torch thread, as tests/test_torch_slam.py's."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -26,19 +26,10 @@ from siftgpu_tpu_torch import MatchConfig, SiftConfig, extract_features
 from siftgpu_tpu_torch.oracle import fixtures
 from siftgpu_tpu_torch.parallel import comm, sequence
 from siftgpu_tpu_torch.pipeline import slam
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 H, W = 144, 192
 INTR = (170.0, 170.0, W / 2.0, H / 2.0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread beside the suite's other workers (see
-    tests/test_torch_slam.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _scene(T):

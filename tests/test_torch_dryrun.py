@@ -8,17 +8,9 @@ reference's own calls as it makes them."""
 
 import numpy as np
 import pytest
-import torch
 
 from siftgpu_tpu_torch.parallel import dryrun
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def test_dryrun_two_ranks():

@@ -12,6 +12,9 @@ nothing.  Here:
   into the tally, in that thread only, and added by `add_launches`;
 - on CPU tensors each entry point equals its eager function bit for bit,
   leaves its cache empty and the launch counters as they were;
+- a torch.Generator is in the signature by its device only (a new object
+  replays the same capture), and one on another device than the tensors
+  is refused as mixed devices;
 - each entry point against the reference's compiled counterpart on the
   same NumPy inputs, within the budgets of the eager tests: extraction
   under tests/test_torch_extract.py's `check_features`; the matchers' pairs
@@ -21,7 +24,15 @@ nothing.  Here:
   camera 0 frozen exactly); the tracking step's features under
   `check_features` and its pairs, whose frame descriptors differ from the
   reference's by up to one step, with >= 95% of the reference's pairs found
-  at the same keyframe keypoint within 0.5 px and counts within 5%.
+  at the same keyframe keypoint within 0.5 px and counts within 5%; guided
+  matching as tests/test_torch_guided.py (pairs and count bit-identical,
+  winner similarities within 4 ulp) on its [300, 900] sets under H, F and
+  H+F; descriptor-only mode as tests/test_torch_sampler.py (mask and octave
+  equal, descriptors within 1 step); two-view on tests/test_torch_twoview.py's
+  160x200 scene, where the draws differ (a torch.Generator against a JAX
+  key): tests/test_twoview.py's ground-truth bounds, match counts equal to
+  the reference's, inliers within 1% and the rotation within 1e-3 rad of
+  its.
 
 The frames are tests/test_torch_extract.py's 120x160 shifted pair (K =
 512), so the reference's extraction compiles once for both files (the
@@ -30,6 +41,7 @@ persistent compilation cache).
 
 import threading
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -42,31 +54,28 @@ from siftgpu_tpu.optim import ba as jba
 from siftgpu_tpu.optim import pnp as jpnp
 from siftgpu_tpu.pipeline import slam as jslam
 from siftgpu_tpu.core.config import MatchConfig as JMatch
+from siftgpu_tpu.frontend.redetect import describe_at_keypoints as j_describe_at_keypoints
+from siftgpu_tpu.oracle import fixtures as jfixtures
+from siftgpu_tpu.pipeline import twoview as jtwoview
 import siftgpu_tpu_torch
 from siftgpu_tpu_torch import MatchConfig, SiftConfig
-from siftgpu_tpu_torch.convert import tree_to_torch
+from siftgpu_tpu_torch.convert import keypoints_from_reference, matrix_to_torch, tree_to_torch
 from siftgpu_tpu_torch.core import graphs
-from siftgpu_tpu_torch.frontend import extract, match
+from siftgpu_tpu_torch.frontend import extract, match, redetect
 from siftgpu_tpu_torch.ops import _build
 from siftgpu_tpu_torch.optim import ba, pnp
 from siftgpu_tpu_torch.oracle import fixtures
-from siftgpu_tpu_torch.pipeline import slam
+from siftgpu_tpu_torch.pipeline import slam, twoview
 
+import test_torch_twoview as ttv
 from test_ba import _make_problem
 from test_torch_extract import SHIFT, check_features
+from test_torch_guided import GATES, _kernel_sets
+from test_torch_match import _check
 from test_torch_pnp import _outliers
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 H, W, K = 120, 160, 512
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: beside the suite's other workers, intra-op threads
-    only contend (this file's 18 s alone took 179 s in a 6-worker run)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -153,6 +162,25 @@ def test_mixed_devices_raise():
     assert not g.captures
 
 
+def test_generator_is_state_not_signature():
+    """A generator's place in the signature is its device: new objects in
+    any state give one key (they replay one capture), and a generator on
+    another device than the tensors is refused before anything runs."""
+    cfg, mcfg = cfgs()
+    jit = twoview.two_view_reconstruct_jit
+    sig = lambda g, dev="cpu": jit.signature(torch.zeros(2, H, W, device=dev),
+                                             torch.zeros(4, device=dev), cfg, mcfg, g)
+    g1, g2 = torch.Generator().manual_seed(1), torch.Generator().manual_seed(2)
+    torch.rand(5, generator=g2)
+    assert sig(g1)[0] == sig(g2)[0] == sig(torch.Generator())[0]
+    assert sig(g1)[2][-1] is g1                   # a leaf: its state is copied at each replay
+    assert sig(g1)[0] != sig(g1, "meta")[0]
+    with pytest.raises(ValueError, match="two_view_reconstruct_jit: tensors on more than one "
+                                         "device"):
+        jit(*sig(g1, "meta")[1].args)
+    assert not jit.captures
+
+
 # ---------------- launch counts under capture ----------------
 
 def test_launches_under_a_capture_go_to_its_tally(monkeypatch):
@@ -190,6 +218,14 @@ def _eager_cases(frames, ref_feats):
     prob, _, _ = _make_problem(seed=3)
     X, uv, w, intr, kw = _outliers()
     t = torch.from_numpy
+    loc = torch.from_numpy(np.stack([np.array(ref_feats.x), np.array(ref_feats.y)], -1))
+    kp = torch.from_numpy(np.stack([np.array(getattr(ref_feats, f)) for f in
+                                    ("x", "y", "sigma", "theta")], -1))
+    Hm = torch.tensor([[1.0, 0.0, SHIFT[0]], [0.0, 1.0, SHIFT[1]], [0.0, 0.0, 1.0]])
+    Fm = torch.tensor([[0.0, 0.0, SHIFT[1]], [0.0, 0.0, -SHIFT[0]], [-SHIFT[1], SHIFT[0], 0.0]])
+    guided = lambda h, f: (match.guided_match_descriptors_jit, match.guided_match_descriptors,
+                           (d[0], d[1], loc[0], loc[1], h, f, m[0], m[1]),
+                           dict(hdist_max=3.0, fdist_max=2.0, cfg=mcfg))
     return {
         "extract": (extract.extract_features_jit, extract.extract_features, (imgs, cfg), {}),
         "match": (match.match_descriptors_jit, match.match_descriptors,
@@ -203,16 +239,31 @@ def _eager_cases(frames, ref_feats):
         "pnp": (pnp.pnp_gn_jit, pnp.pnp_gn, (t(X), t(uv), t(w), t(intr), torch.zeros(6)), kw),
         "ba": (ba.run_ba_jit, ba.run_ba, (tree_to_torch(prob, ba.BAProblem),),
                dict(iters=5, n_cg=20)),
+        "two_view": (twoview.two_view_reconstruct_jit, twoview.two_view_reconstruct,
+                     (imgs, torch.tensor([180.0, 180.0, W / 2.0, H / 2.0]), cfg, mcfg,
+                      torch.Generator().manual_seed(7)), {}),
+        "guided_h": guided(Hm, None),
+        "guided_f": guided(None, Fm),
+        "guided_hf": guided(Hm, Fm),
+        "describe": (redetect.describe_at_keypoints_jit, redetect.describe_at_keypoints,
+                     (imgs[:1], kp[:1], cfg), {}),
     }
 
 
 @pytest.mark.parametrize("name", ["extract", "match", "match_batch", "track_step", "match_kf",
-                                  "loop_match", "pnp", "ba"])
+                                  "loop_match", "pnp", "ba", "two_view", "guided_h", "guided_f",
+                                  "guided_hf", "describe"])
 def test_cpu_route_is_the_eager_function(name, frames, ref_feats):
     jit, eager, args, kw = _eager_cases(frames, ref_feats)[name]
     before = {n: k.launches for n, k in _build.KERNELS.items()}
+    gens = [a for a in args if isinstance(a, torch.Generator)]
+    states = [g.get_state() for g in gens]
     got = jit(*args, **kw)
+    after = [g.get_state() for g in gens]
+    for g, st in zip(gens, states):             # the eager call draws from the same state
+        g.set_state(st)
     assert same_bits(got, eager(*args, **kw))
+    assert all(torch.equal(a, g.get_state()) for a, g in zip(after, gens))
     assert not jit.captures
     assert {n: k.launches for n, k in _build.KERNELS.items()} == before
 
@@ -306,3 +357,57 @@ def test_track_step_jit_matches_reference(frames, ref_feats):
         found += bool(len(same_kf)) and bool(
             (np.hypot(gx[same_kf] - rx[fr_i], gy[same_kf] - ry[fr_i]) < 0.5).any())
     assert found >= 0.95 * n_ref, (found, n_ref)
+
+
+@pytest.mark.parametrize("gate", sorted(GATES))
+def test_guided_match_descriptors_jit_matches_reference(gate):
+    """tests/test_torch_guided.py's [300, 900] sets through both compiled
+    guided matchers."""
+    c = _kernel_sets()
+    use_h, use_f = GATES[gate]
+    ref = jmatch.guided_match_descriptors(
+        *map(jnp.asarray, (c["d0"], c["d1"], c["loc0"], c["loc1"])),
+        H=jnp.asarray(c["H"]) if use_h else None, F=jnp.asarray(c["F"]) if use_f else None,
+        mask0=jnp.asarray(c["m0"]), mask1=jnp.asarray(c["m1"]), hdist_max=c["hdist"],
+        fdist_max=c["fdist"], cfg=JMatch(max_match=c["max_match"], block_size=-1,
+                                         use_pallas=False))
+    got = match.guided_match_descriptors_jit(
+        *map(torch.from_numpy, (c["d0"], c["d1"], c["loc0"], c["loc1"])),
+        H=matrix_to_torch(c["H"]) if use_h else None,
+        F=matrix_to_torch(c["F"]) if use_f else None,
+        mask0=torch.from_numpy(c["m0"]), mask1=torch.from_numpy(c["m1"]), hdist_max=c["hdist"],
+        fdist_max=c["fdist"], cfg=MatchConfig(max_match=c["max_match"]))
+    _check(got, ref, sim_ulps=4)
+    assert int(got.count) > 0
+
+
+def test_describe_at_keypoints_jit_matches_reference(frames, ref_feats):
+    """Frame 0's own keypoints described again by both compiled functions."""
+    keys = keypoints_from_reference(ref_feats)[None]
+    ref = j_describe_at_keypoints(jnp.asarray(frames[:1]), jnp.asarray(keys),
+                                  JConfig(height=H, width=W, max_keypoints=K))
+    got = redetect.describe_at_keypoints_jit(torch.from_numpy(frames[:1]),
+                                             torch.from_numpy(keys), cfgs()[0])
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(ref.mask))
+    np.testing.assert_array_equal(got.octave.numpy(), np.asarray(ref.octave))
+    assert np.abs(got.desc.numpy().astype(int) - np.asarray(ref.desc).astype(int)).max() <= 1
+    assert int(got.mask.sum()) > 50
+
+
+def test_two_view_reconstruct_jit_matches_reference():
+    """tests/test_torch_twoview.py's 160x200 scene through both compiled
+    two-view programs (their draws differ)."""
+    img0, img1, meta = fixtures.two_plane_stereo(ttv.H, ttv.W, ttv.INTR, ttv.RVEC, ttv.T_GT, seed=2)
+    j0, j1, _ = jfixtures.two_plane_stereo(ttv.H, ttv.W, ttv.INTR, ttv.RVEC, ttv.T_GT, seed=2)
+    ref = jtwoview.two_view_reconstruct(
+        jnp.stack([jnp.asarray(j0), jnp.asarray(j1)]), jnp.asarray(ttv.INTR, jnp.float32),
+        JConfig(height=ttv.H, width=ttv.W, max_keypoints=1024), JMatch(max_match=1024),
+        jax.random.PRNGKey(7))
+    got = twoview.two_view_reconstruct_jit(
+        torch.from_numpy(np.stack([img0, img1])), torch.tensor(ttv.INTR, dtype=torch.float32),
+        SiftConfig(height=ttv.H, width=ttv.W, max_keypoints=1024), MatchConfig(max_match=1024),
+        torch.Generator().manual_seed(7))
+    ttv._check_ground_truth(got, meta["R"])
+    assert int(got.num_matches) == int(ref.num_matches)
+    assert abs(int(got.num_inliers) - int(ref.num_inliers)) <= 0.01 * int(ref.num_inliers)
+    assert ttv._rot_angle(got.R.numpy(), np.asarray(ref.R)) < 1e-3

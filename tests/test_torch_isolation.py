@@ -12,10 +12,10 @@ import torch
 from siftgpu_tpu_torch.core.config import SiftConfig
 from siftgpu_tpu_torch.frontend import pyramid
 from siftgpu_tpu_torch.ops import (_build, desc_sampler, detect_scores, grad_stencil, kp_engine,
-                                   match_kernel, pyramid_kernel)
+                                   match_kernel, pyramid_kernel, small_eig)
 
 KERNEL_NAMES = ["detect_scores", "grad_stencil", "orient_sample", "match_best2",
-                "match_best2_gated", "sample_gradients", "blur_octave_fused"]
+                "match_best2_gated", "sample_gradients", "blur_octave_fused", "small_eig"]
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -32,7 +32,7 @@ def test_imports_without_jax_or_reference():
                                                 pyramid, redetect)
         from siftgpu_tpu_torch.geometry import align, epipolar, pose
         from siftgpu_tpu_torch.ops import (_build, desc_sampler, detect_scores, grad_stencil,
-                                           kp_engine, match_kernel, pyramid_kernel)
+                                           kp_engine, match_kernel, pyramid_kernel, small_eig)
         from siftgpu_tpu_torch.optim import ba, pnp, pose_graph
         from siftgpu_tpu_torch.parallel import (comm, dist_ba, dist_pose_graph, dp, dryrun,
                                                 resident_ba, sequence, spatial)
@@ -41,6 +41,7 @@ def test_imports_without_jax_or_reference():
         from siftgpu_tpu_torch.pipeline import (api, checkpoint, cli, metrics, profile, server,
                                                 siftio, slam, twoview, viz)
         import bench_torch
+        import ransac_witness                 # and chip_smoke, which it imports
         assert not any(m == "jax" or m.startswith(("jax.", "siftgpu_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print(sorted(_build.KERNELS))
@@ -88,6 +89,7 @@ def test_non_cpu_tensor_never_takes_the_plain_version(name):
             meta(4, dt=torch.int32), meta(4, 256), meta(4, 256)),
         "blur_octave_fused": lambda: pyramid_kernel.blur_octave_fused(
             meta(2, 32, 32), [cfg.gaussian_taps(float(s)) for s in cfg.incremental_sigmas()]),
+        "small_eig": lambda: (small_eig.eigh_sym(meta(512, 9, 9)), small_eig.svd3(meta(3, 3))),
     }
     with pytest.raises(ValueError, match="CUDA tensor"):
         calls[name]()

@@ -41,7 +41,6 @@ import json
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 import chip_smoke as cs
@@ -57,17 +56,10 @@ from siftgpu_tpu_torch.oracle import fixtures
 from siftgpu_tpu_torch.pipeline import metrics, slam
 
 from test_torch_slam import PortFeatures, RefFeatures, draws_patch  # noqa: F401 (a fixture)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 SIZE = (144, 192, 384)
 PREFIX = 17     # frames 0-16: the reference's first loop_correction comes at frame 16
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _reference_features(frames):

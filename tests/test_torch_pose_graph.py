@@ -23,17 +23,7 @@ from siftgpu_tpu_torch.geometry import pose as P
 from siftgpu_tpu_torch.optim import pose_graph as pg
 
 from test_pose_graph import _circle_graph, _long_chain_graph, _sim3_circle_graph
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """The loop runs thousands of tiny ops per frame: on the CPU beside the
-    suite's other workers, intra-op threads only contend (13 s alone became
-    640 s in a 6-worker run), so each test here runs on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _to_torch(g, cls):

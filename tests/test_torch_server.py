@@ -25,17 +25,9 @@ from siftgpu_tpu.pipeline.api import SiftTPU as JSift
 from siftgpu_tpu_torch.oracle import fixtures
 from siftgpu_tpu_torch.pipeline import server
 from siftgpu_tpu_torch.pipeline.api import SiftMatchTPU, SiftTPU
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ARGV = ["-t", "0.02"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One torch thread: the suite runs six test processes at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _serve_in_thread(serve, **kw):

@@ -13,7 +13,6 @@ against the reference.
 
 import numpy as np
 import pytest
-import torch
 
 from siftgpu_tpu.pipeline import slam as jslam
 from siftgpu_tpu_torch import MatchConfig, SiftConfig
@@ -22,17 +21,7 @@ from siftgpu_tpu_torch.oracle import fixtures
 from siftgpu_tpu_torch.pipeline import metrics, slam
 
 from test_map_repair import _drifted_state, _loop_edge_rel7
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """The loop runs thousands of tiny ops per frame: on the CPU beside the
-    suite's other workers, intra-op threads only contend (13 s alone became
-    640 s in a 6-worker run), so each test here runs on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

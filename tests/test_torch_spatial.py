@@ -36,6 +36,7 @@ from siftgpu_tpu_torch import Features, SiftConfig, convert, extract_features
 from siftgpu_tpu_torch.oracle import fixtures
 from siftgpu_tpu_torch.parallel import comm, spatial
 from test_torch_extract import check_features
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 H, W, K = 256, 96, 512
 HALO_FRAMES = np.random.default_rng(7).random((2, 16, 5)).astype(np.float32)   # 8 rows a rank
@@ -45,14 +46,6 @@ EXTRACT = {   # name: (frame height, width and texture scale, config options, sp
     "gathered": ((H, W, 2), dict(), {"min_rows": 64}),
     "fo1": ((2 * H, 2 * W, 4), dict(first_octave=1), {}),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _image(h=H, w=W, smooth=2):
