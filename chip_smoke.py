@@ -210,8 +210,13 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      (phase 4c's pair and two more of its texture seeds, each with its own
      generator seed), `match.guided_match_descriptors_jit` (phase 4's
      three pairs padded to 4096 as the facade pads them, under H, F and
-     H+F) and `redetect.describe_at_keypoints_jit` (phase 4's frames at
-     their extracted keypoints, kernel 5's grid constants uploaded first):
+     H+F), `redetect.describe_at_keypoints_jit` (phase 4's frames at
+     their extracted keypoints, kernel 5's grid constants uploaded first),
+     `ba.refine_points_jit` (the fullest BA bucket's problems),
+     `pose_graph.optimize_pose_graph_jit` (phase 4f's SE(3) circle graph
+     at 12 and 64 nodes, three noise seeds each) and
+     `epipolar.ransac_essential_jit` (the run's bootstrap correspondences,
+     three generator seeds and three 0-d tensor thresholds, one capture):
      the first eager call under torch's sync debug mode "error" (no sync),
      the capture (seconds, pool
      MiB), three replays on different inputs bit for bit against the eager
@@ -3843,8 +3848,10 @@ def graphs_phase(dev, sync, images, feats, h=H, w=W, k=K):
     `match_descriptors_jit` and `match_descriptors_batch_jit`,
     `slam._track_step_jit`, `_match_kf_jit`, `_loop_match_jit`,
     `pnp.pnp_gn_jit`, `ba.run_ba_jit`, `twoview.two_view_reconstruct_jit`,
-    `match.guided_match_descriptors_jit`, `redetect.describe_at_keypoints_jit`)
-    against its eager function (`graph_case`).  The inputs: phase 4's four frames one at a time and as
+    `match.guided_match_descriptors_jit`, `redetect.describe_at_keypoints_jit`,
+    `ba.refine_points_jit`, `pose_graph.optimize_pose_graph_jit`,
+    `epipolar.ransac_essential_jit`) against its eager function
+    (`graph_case`).  The inputs: phase 4's four frames one at a time and as
     a batch of 4 (and that batch rolled); phase 4's three pairs, alone and
     as a batch of 3 (rolled); and from one `run_slam` on phase 4d's loop
     scene, recorded: its first tracking steps of one keyframe count against
@@ -3852,7 +3859,11 @@ def graphs_phase(dev, sync, images, feats, h=H, w=W, k=K):
     descriptors, three PnP problems padded with weight-0 rows to one pow2
     bucket, and its windowed BA problems padded to pow2 observation
     buckets, the two fullest buckets (cameras nudged where a bucket holds
-    fewer than three problems); phase 4c's stereo pair and the same scene
+    fewer than three problems), the fullest one's also for the points-only
+    refit, and its bootstrap RANSAC's correspondences, with generator seeds
+    7, 8, 9 and thresholds (2/f)^2 x {1, 0.5, 2} as 0-d tensors (one
+    capture must serve all three); the SE(3) circle graphs of phase 4f at
+    12 and 64 nodes (noise seeds 11, 12, 13); phase 4c's stereo pair and the same scene
     with texture seeds 3 and 4, generator seeds 7, 8, 9; phase 4's three
     pairs padded to the facade's 4096 rows under H, F and H+F (hdist 3,
     fdist 2); phase 4's first three frames at their own keypoints.  Before them the main path's synchronising
@@ -3864,7 +3875,9 @@ def graphs_phase(dev, sync, images, feats, h=H, w=W, k=K):
     from siftgpu_tpu_torch import MatchConfig, SiftConfig
     from siftgpu_tpu_torch.core import graphs
     from siftgpu_tpu_torch.frontend import describe, extract, match, redetect
+    from siftgpu_tpu_torch.geometry import epipolar
     from siftgpu_tpu_torch.optim import ba, pnp
+    from siftgpu_tpu_torch.optim import pose_graph as pg
     from siftgpu_tpu_torch.oracle import fixtures
     from siftgpu_tpu_torch.pipeline import slam, twoview
 
@@ -3900,12 +3913,14 @@ def graphs_phase(dev, sync, images, feats, h=H, w=W, k=K):
 
     # ---- one SLAM run of phase 4d's scene, its device steps recorded ----
     frames, _, intr = slam_loop_scene(fixtures, h, w)
-    steps, loops, pnps, bas = [], [], [], []
+    steps, loops, pnps, bas, boots = [], [], [], [], []
     with recorded_calls(slam, "_track_step", steps), recorded_calls(slam, "_loop_match", loops), \
-            recorded_calls(pnp, "pnp_gn", pnps), recorded_calls(ba, "run_ba", bas):
+            recorded_calls(pnp, "pnp_gn", pnps), recorded_calls(ba, "run_ba", bas), \
+            recorded_calls(epipolar, "ransac_from_samples", boots):
         slam.run_slam(frames, intr, cfg, mcfg, slam_config(slam, w), device=dev)
     log(f"  recorded from run_slam on phase 4d's scene: {len(steps)} tracking steps, "
-        f"{len(loops)} archive matches, {len(pnps)} PnP and {len(bas)} windowed BA problems")
+        f"{len(loops)} archive matches, {len(pnps)} PnP and {len(bas)} windowed BA problems, "
+        f"{len(boots)} bootstrap RANSAC call(s)")
     by_p = {}
     for call in steps:
         by_p.setdefault(call[0][1].shape[0], []).append(call)
@@ -3939,10 +3954,34 @@ def graphs_phase(dev, sync, images, feats, h=H, w=W, k=K):
     if len(fullest) == 1:   # one bucket only: the next pow2 as the second
         (mb, nb), calls = fullest[0]
         fullest.append(((mb, 2 * nb), [padded_ba(c, 2 * nb) for c in calls]))
-    for (mb, nb), calls in fullest:
+    for i, ((mb, nb), calls) in enumerate(fullest):
         calls = calls[:3]
         calls += [nudged_ba(calls[0], s) for s in range(3 - len(calls))]
         case(f"run_ba_jit, {mb} cameras, {nb} observations", ba.run_ba_jit, ba.run_ba, calls)
+        if i == 0:          # the points-only refit on the fullest bucket's problems
+            case(f"refine_points_jit, {mb} cameras, {nb} observations", ba.refine_points_jit,
+                 ba.refine_points, [((prob,), {}) for (prob,), _ in calls])
+
+    # ---- the SE(3) pose graph, and the bootstrap's RANSAC at three thresholds ----
+    for n in (12, 64):          # 64 nodes: the dense solver's cap, a [384, 384] system
+        case(f"optimize_pose_graph_jit, SE(3), {n} nodes", pg.optimize_pose_graph_jit,
+             pg.optimize_pose_graph,
+             [((pg.PoseGraph(*(torch.from_numpy(x).to(dev)
+                               for x in circle_graphs(n=n, seed=seed)["se3"])),),
+               dict(iters=PG_ITERS)) for seed in (11, 12, 13)])
+    if not boots:
+        raise AssertionError("run_slam made no bootstrap RANSAC call")
+    (x0, x1, valid, draws), rkw = boots[0]
+    thr = rkw["threshold"]
+    case(f"ransac_essential_jit, {x0.shape[0]} correspondences, thresholds (2/f)^2 x "
+         f"{{1, 0.5, 2}}", epipolar.ransac_essential_jit, epipolar.ransac_essential,
+         [((x0, x1, valid, torch.Generator(device=dev).manual_seed(seed)),
+           dict(num_hypotheses=draws.shape[0], threshold=torch.full((), thr * f, device=dev)))
+          for seed, f in ((7, 1.0), (8, 0.5), (9, 2.0))])
+    n_caps = len(epipolar.ransac_essential_jit.captures)
+    if cuda and n_caps != 1:
+        raise AssertionError(f"ransac_essential_jit: {n_caps} captures for three thresholds")
+    log(f"  ransac_essential_jit: three thresholds, {n_caps} capture(s)")
 
     # ---- two-view, guided matching and descriptor-only mode ----
     pairs = [stereo_pair(dev, h, w, seed) for seed in (2, 3, 4)]    # phase 4c's, then two more
@@ -3981,7 +4020,8 @@ def graphs_phase(dev, sync, images, feats, h=H, w=W, k=K):
                 match.match_descriptors_batch_jit, slam._track_step_jit, slam._match_kf_jit,
                 slam._loop_match_jit, pnp.pnp_gn_jit, ba.run_ba_jit,
                 twoview.two_view_reconstruct_jit, match.guided_match_descriptors_jit,
-                redetect.describe_at_keypoints_jit):
+                redetect.describe_at_keypoints_jit, ba.refine_points_jit,
+                pg.optimize_pose_graph_jit, epipolar.ransac_essential_jit):
         jit.captures.clear()    # the later phases run with the memory they had before
     if cuda:
         log(f"  {card_line()}")

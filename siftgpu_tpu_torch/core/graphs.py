@@ -69,7 +69,10 @@ def device_constant(key, device, make: Callable[[], np.ndarray]) -> torch.Tensor
     from pageable memory, which synchronises the stream and cannot be
     captured: a graph's warm-up calls make the constants, its capture finds
     them here."""
-    k = (key, str(torch.device(device)))
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:   # "cuda" and "cuda:0": one key
+        device = torch.device("cuda", torch.cuda.current_device())
+    k = (key, str(device))
     t = _CONSTANTS.get(k)
     if t is None:
         t = _CONSTANTS.setdefault(k, torch.from_numpy(np.ascontiguousarray(make())).to(device))

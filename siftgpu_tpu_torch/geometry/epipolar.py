@@ -32,12 +32,13 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.graphs import graphed
 from ..core.precision import full_f32
 from ..ops import small_eig
 
 __all__ = [
     "RansacResult", "eight_point", "sampson_distance", "sample_minimal_sets",
-    "ransac_from_samples", "ransac_essential",
+    "ransac_from_samples", "ransac_essential", "ransac_essential_jit",
 ]
 
 _SQRT2 = math.sqrt(2.0)
@@ -123,7 +124,7 @@ def sample_minimal_sets(mask: torch.Tensor, num_hypotheses: int,
 
 def ransac_from_samples(
     x0: torch.Tensor, x1: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor,
-    threshold: float = 1e-4, refine_iters: int = 2,
+    threshold: float | torch.Tensor = 1e-4, refine_iters: int = 2,
 ) -> RansacResult:
     """Score the minimal sets `idx` [H, 8] and refine the best.  x0, x1:
     [N, 2] normalized coords; `threshold` is on squared Sampson distance
@@ -155,9 +156,20 @@ def ransac_from_samples(
 
 def ransac_essential(
     x0: torch.Tensor, x1: torch.Tensor, mask: torch.Tensor, generator: torch.Generator,
-    num_hypotheses: int = 512, threshold: float = 1e-4, refine_iters: int = 2,
+    num_hypotheses: int = 512, threshold: float | torch.Tensor = 1e-4, refine_iters: int = 2,
 ) -> RansacResult:
     """Fixed-iteration batched RANSAC for E.  x0, x1: [N, 2] normalized
-    coords; mask [N] bool; `generator` on their device."""
+    coords; mask [N] bool; `generator` on their device; `threshold` on
+    squared Sampson distance, a float or a 0-d tensor on their device."""
     idx = sample_minimal_sets(mask, num_hypotheses, generator)
     return ransac_from_samples(x0, x1, mask, idx, threshold, refine_iters)
+
+
+# the reference's jitted `ransac_essential` (`num_hypotheses`, `refine_iters`
+# static, `threshold` traced): captured once per signature on CUDA inputs
+# (`core/graphs.py`), the generator as state.  A 0-d tensor threshold is an
+# input of the capture, so one capture serves every value (make it with
+# `torch.full((), thr, device=dev)`: a fill, where `torch.tensor(thr,
+# device=dev)` copies from pageable memory and synchronises); a float
+# threshold is static, one capture per value
+ransac_essential_jit = graphed(ransac_essential, "ransac_essential_jit")

@@ -39,7 +39,7 @@ from ..geometry.pose import _so3_left_jacobian, exp_so3, hat
 
 __all__ = [
     "BAProblem", "BAState", "Segments", "project", "reprojection_residuals", "schur_solve",
-    "run_ba", "run_ba_jit", "refine_points", "all_reduce_sum",
+    "run_ba", "run_ba_jit", "refine_points", "refine_points_jit", "all_reduce_sum",
 ]
 
 
@@ -323,3 +323,10 @@ def refine_points(prob: BAProblem, iters: int = 3, huber_px: float = 3.0) -> tor
             # guard: a point with degenerate observations must not fly away
             points = points + torch.clamp(dpt, -1e3, 1e3)
     return points
+
+
+# the reference's jitted `refine_points` (`iters` static; `huber_px`, a
+# Python float, is keyed by value): one capture per padded problem bucket.
+# A weight-0 row adds nothing to its point's system, so a point observed
+# only by such rows keeps its coordinates (its Hpp is 1e-4 I, its bp 0)
+refine_points_jit = graphed(refine_points, "refine_points_jit")

@@ -33,12 +33,13 @@ from typing import NamedTuple, Tuple
 import torch
 from torch.func import jvp
 
+from ..core.graphs import graphed
 from ..core.precision import full_f32
 from ..geometry import pose as P
 from .ba import Segments, _segment_sum, all_reduce_sum
 
 __all__ = [
-    "PoseGraph", "optimize_pose_graph",
+    "PoseGraph", "optimize_pose_graph", "optimize_pose_graph_jit",
     "Sim3PoseGraph", "optimize_pose_graph_sim3",
     "optimize_pose_graph_sim3_cg", "sim7_to_srt", "srt_to_sim7",
 ]
@@ -140,6 +141,14 @@ def optimize_pose_graph(g: PoseGraph, iters: int = 10, lam: float = 1e-5,
         R, t = P.compose(dR, dt, R, t)
         costs.append((r * r).sum())
     return g._replace(poses=P.log_se3(R, t)), all_reduce_sum(torch.stack(costs), group)
+
+
+# the reference's `optimize_pose_graph_jit` (`iters`, `fix_first` static; its
+# traced `lam` is a Python float here, keyed by value): captured once per
+# signature on CUDA inputs (`core/graphs.py`).  `group` stays None: a gloo
+# collective cannot be captured (the capture fails, naming this entry
+# point), and capturing NCCL's is left to the rank programs
+optimize_pose_graph_jit = graphed(optimize_pose_graph, "optimize_pose_graph_jit")
 
 
 # ---------------- Sim(3) pose graph (monocular loop closure) ----------------

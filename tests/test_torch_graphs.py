@@ -62,13 +62,17 @@ from siftgpu_tpu_torch import MatchConfig, SiftConfig
 from siftgpu_tpu_torch.convert import keypoints_from_reference, matrix_to_torch, tree_to_torch
 from siftgpu_tpu_torch.core import graphs
 from siftgpu_tpu_torch.frontend import extract, match, redetect
+from siftgpu_tpu_torch.geometry import epipolar
 from siftgpu_tpu_torch.ops import _build
 from siftgpu_tpu_torch.optim import ba, pnp
+from siftgpu_tpu_torch.optim import pose_graph as pg
 from siftgpu_tpu_torch.oracle import fixtures
 from siftgpu_tpu_torch.pipeline import slam, twoview
 
+import chip_smoke
 import test_torch_twoview as ttv
 from test_ba import _make_problem
+from test_geometry import _synthetic_two_view
 from test_torch_extract import SHIFT, check_features
 from test_torch_guided import GATES, _kernel_sets
 from test_torch_match import _check
@@ -217,6 +221,7 @@ def _eager_cases(frames, ref_feats):
     m = torch.from_numpy(np.array(ref_feats.mask))
     prob, _, _ = _make_problem(seed=3)
     X, uv, w, intr, kw = _outliers()
+    x0, x1, *_ = _synthetic_two_view(120, seed=2, noise=1e-4, outliers=30)
     t = torch.from_numpy
     loc = torch.from_numpy(np.stack([np.array(ref_feats.x), np.array(ref_feats.y)], -1))
     kp = torch.from_numpy(np.stack([np.array(getattr(ref_feats, f)) for f in
@@ -247,14 +252,29 @@ def _eager_cases(frames, ref_feats):
         "guided_hf": guided(Hm, Fm),
         "describe": (redetect.describe_at_keypoints_jit, redetect.describe_at_keypoints,
                      (imgs[:1], kp[:1], cfg), {}),
+        "refine_points": (ba.refine_points_jit, ba.refine_points,
+                          (tree_to_torch(prob, ba.BAProblem),), dict(iters=3)),
+        "pose_graph": (pg.optimize_pose_graph_jit, pg.optimize_pose_graph,
+                       (pg.PoseGraph(*map(t, chip_smoke.circle_graphs(n=12)["se3"])),),
+                       dict(iters=chip_smoke.PG_ITERS)),
+        "ransac": (epipolar.ransac_essential_jit, epipolar.ransac_essential,
+                   (t(np.array(x0)), t(np.array(x1)), torch.ones(x0.shape[0], dtype=torch.bool),
+                    torch.Generator().manual_seed(0)),
+                   dict(num_hypotheses=256, threshold=torch.full((), 1e-5))),
     }
 
 
 @pytest.mark.parametrize("name", ["extract", "match", "match_batch", "track_step", "match_kf",
                                   "loop_match", "pnp", "ba", "two_view", "guided_h", "guided_f",
-                                  "guided_hf", "describe"])
+                                  "guided_hf", "describe", "refine_points", "pose_graph",
+                                  "ransac"])
 def test_cpu_route_is_the_eager_function(name, frames, ref_feats):
-    jit, eager, args, kw = _eager_cases(frames, ref_feats)[name]
+    check_cpu_route(*_eager_cases(frames, ref_feats)[name])
+
+
+def check_cpu_route(jit, eager, args, kw):
+    """jit on CPU inputs: the eager function's bits, its generators left
+    where the eager call leaves them, nothing captured, no launch counted."""
     before = {n: k.launches for n, k in _build.KERNELS.items()}
     gens = [a for a in args if isinstance(a, torch.Generator)]
     states = [g.get_state() for g in gens]
