@@ -119,7 +119,8 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      `ONLINE_REF` (`slam_reference.py --online`) on all but one, and at
      480x640 (K = 2048), where the reference's own assertions fail, held
      to its own bootstrap (> 20 PnP inliers from frame 1), detection not
-     starved and the ATE bound;
+     starved and the ATE bound; its six runs share ONLINE_WORKERS spawned
+     processes on the card, their launches summed;
   4e. CLI and server path (after 4d): launch counters reset to 0, then
      only the CLI's and the server's own launches count; in process,
      through `cli.main`: `extract` (its `.sift` byte-identical to
@@ -189,7 +190,10 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      one PyTorch call computes the same function, that call, at its path's
      shapes (the octave kernel per octave as well): CUDA events around
      back-to-back calls and device time (torch.profiler), beside the
-     least time the card could take (`siftgpu_tpu_torch/bounds.py`);
+     least time the card could take (`siftgpu_tpu_torch/bounds.py`); the
+     small-matrix kernel also by call: device ms (a CUDA graph of 20
+     calls) against torch.linalg's, its bound, and the sweeps and rotations
+     its matrices needed;
   5b. bench.py's measurements (after 5, before 4d): launch counters reset
      to 0, `bench_torch.run` in process: bench.py's five sections at its
      sizes (the 640 batch, a 1088x1920 and a 2160x3840 frame, the 16384^2
@@ -252,6 +256,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -393,9 +398,9 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
+def card_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0]
@@ -788,6 +793,34 @@ def device_ms(fns, sync, iters: int = 3) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
 
 
+def replay_ms(fn, sync, reps: int = 20, iters: int = 5) -> float:
+    """Device ms per call of fn without torch.profiler: `reps` calls
+    captured into one CUDA graph, replayed `iters` times between CUDA events
+    (no host launch cost inside; the gaps between the graph's kernels
+    count).  For calls that capture (no host sync)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    sync()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        graph.replay()
+    t1.record()
+    sync()
+    return t0.elapsed_time(t1) / (iters * reps)
+
+
 class Parity:
     """Kernel-vs-plain comparisons on the card."""
 
@@ -796,6 +829,7 @@ class Parity:
         self.sync = sync
         self.err = {}       # kernel name -> max abs error over its comparisons
         self.calls = {}     # kernel name -> list of Call
+        self.eig_calls = []  # small_eig's timed calls: (label, shape, tests, rotations)
 
     def note(self, name, err, kern, plain, work, lib=None, timed=True):
         """Record a comparison; `timed` ones are main-path calls, timed in phase 5."""
@@ -1063,6 +1097,8 @@ class Parity:
         lib = (lambda: torch_linalg(kind)(x))
         self.note("small_eig", 0.0, lambda: kern(x), lambda: plain(x),
                   bounds.small_eig_work(kind, B, n, *counts[0]), lib, timed)
+        if timed:
+            self.eig_calls.append((f"{kind} {label}", tuple(x.shape), *counts[0]))
 
 
 # small_eig against torch.linalg (cuSOLVER on the card), per matrix, relative
@@ -2274,11 +2310,50 @@ def slam_phase(dev, sync, par, h=H, w=W, k=K):
     return launches, dist_ref
 
 
-def online_phase(dev, sync, sizes=None):
+ONLINE_WORKERS = 3   # processes for the online step's runs on the card (0: in this one)
+
+
+def online_worker(jobs, device):
+    """Phase 4d's online step in one spawned process: `online_correction_runs`
+    for each (h, w, k, seed) of `jobs` on `device`.  Returns [(job, its
+    numbers, seconds)] and the process's kernel launches."""
+    import tempfile
+
+    import torch
+
+    from siftgpu_tpu_torch.ops import _build
+
+    torch.set_num_threads(2)
+    pkg = online_package()
+    done = []
+    for h, w, k, seed in jobs:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            got = online_correction_runs(pkg, h, w, k, tmp, seed=seed, device=device)
+        done.append(((h, w, k, seed), got, time.perf_counter() - t0))
+    return done, {name: kern.launches for name, kern in _build.KERNELS.items()}
+
+
+def online_package():
+    """The port's modules that `online_correction_runs` takes as `pkg`."""
+    import types
+
+    from siftgpu_tpu_torch import MatchConfig, SiftConfig
+    from siftgpu_tpu_torch.geometry import align
+    from siftgpu_tpu_torch.oracle import fixtures
+    from siftgpu_tpu_torch.pipeline import metrics, slam
+
+    return types.SimpleNamespace(SiftConfig=SiftConfig, MatchConfig=MatchConfig, slam=slam,
+                                 align=align, fixtures=fixtures, metrics=metrics)
+
+
+def online_phase(dev, sync, sizes=None, workers=0):
     """Phase 4d's online-correction step: `online_correction_runs` through
     the port on this device, launch counters reset before it, at each size
     of ONLINE_REF (the reference's numbers, `slam_reference.py --online`)
-    and each of its noise seeds.  At 144x192 (the fixtures' own size,
+    and each of its noise seeds; with `workers` > 0 the runs share that
+    many spawned processes (each seed's run is the same as in this
+    process; their launches are added to this one's).  At 144x192 (the fixtures' own size,
     where the reference's assertions were tuned) `check_online_correction`
     holds the port to each of the reference's assertions on as many of
     the seeds as the reference keeps it, less one, and to phase 4d's ATE
@@ -2289,31 +2364,47 @@ def online_phase(dev, sync, sizes=None):
     bootstrap (more than 20 PnP inliers on every frame from frame 1).
     Returns the launches."""
     import tempfile
-    import types
 
-    from siftgpu_tpu_torch import MatchConfig, SiftConfig
-    from siftgpu_tpu_torch.geometry import align
     from siftgpu_tpu_torch.ops import _build
-    from siftgpu_tpu_torch.oracle import fixtures
-    from siftgpu_tpu_torch.pipeline import metrics, slam
 
-    pkg = types.SimpleNamespace(SiftConfig=SiftConfig, MatchConfig=MatchConfig, slam=slam,
-                                align=align, fixtures=fixtures, metrics=metrics)
+    pkg = online_package()
     cuda = dev.type == "cuda"
     log("phase 4d, online loop correction: tests/test_loop_closure.py's loop and two-loop "
         "scenes with its weak SlamConfig")
     for kern in _build.KERNELS.values():
         kern.launches = 0
+    jobs = [(h, w, k, seed) for (h, w, k), entry in ONLINE_REF.items()
+            if sizes is None or (h, w, k) in sizes for seed in entry["seeds"]]
+    done = {}   # (h, w, k, seed) -> (numbers, seconds)
+    if workers and jobs:
+        ranks_import_this_module()
+        n = min(workers, len(jobs))
+        t0 = time.perf_counter()
+        with multiprocessing.get_context("spawn").Pool(n) as pool:
+            shares = pool.starmap_async(online_worker, [(jobs[r::n], str(dev))
+                                                        for r in range(n)])
+            for runs_of_worker, launches in shares.get(timeout=DIST_TIMEOUT):
+                for job, got, sec in runs_of_worker:
+                    done[job] = got, sec
+                for name, count in launches.items():
+                    _build.KERNELS[name].launches += count
+        log(f"  {len(jobs)} runs in {n} spawned processes: "
+            f"{time.perf_counter() - t0:.1f} s of wall time")
     for (h, w, k), entry in ONLINE_REF.items():
         if sizes is not None and (h, w, k) not in sizes:
             continue
         refs, runs = entry["seeds"], {}
         for seed, ref in refs.items():
-            t0 = time.perf_counter()
-            with tempfile.TemporaryDirectory() as tmp:
-                got = runs[seed] = online_correction_runs(pkg, h, w, k, tmp, seed=seed,
-                                                          device=dev)
-            sync()
+            if (h, w, k, seed) in done:
+                runs[seed], sec = done[h, w, k, seed]
+            else:
+                t0 = time.perf_counter()
+                with tempfile.TemporaryDirectory() as tmp:
+                    runs[seed] = online_correction_runs(pkg, h, w, k, tmp, seed=seed,
+                                                        device=dev)
+                sync()
+                sec = time.perf_counter() - t0
+            got = runs[seed]
             for run in ("online", "endonly", "plain", "two_online", "two_offline"):
                 g, r = got[run], ref[run]
                 log(f"  {h}x{w}, K = {k}, seed {seed}, {run}: "
@@ -2327,7 +2418,7 @@ def online_phase(dev, sync, sizes=None):
                 f"{got['tail_inl_on']:.2f} against {got['tail_inl_off']:.2f} (the reference: "
                 f"{ref['n_corrections']}, {ref['t_corr']}, {ref['err_on']:.4f} / "
                 f"{ref['err_off']:.4f}, {ref['tail_inl_on']:.2f} / {ref['tail_inl_off']:.2f})"
-                f"; {time.perf_counter() - t0:.1f} s")
+                f"; {sec:.1f} s")
             log(f"  {h}x{w}, seed {seed}: ratios "
                 + ", ".join(f"{n} {v:.4f} (the reference {online_ratios(ref)[n]:.4f})"
                             for n, v in online_ratios(got).items()))
@@ -4207,6 +4298,16 @@ def run(device: str, h=H, w=W, b=B, k=K):
                 f"{rec['library_ms'] if lb else 'none'}, bound {bound_ms:.4f} ms ({bound_by}) "
                 f"(sum over {len(calls)} calls of its path)")
         records.append(rec)
+    if timing:   # small_eig by call: device ms against torch.linalg's, and its Jacobi work
+        log(f"  SM clock now, max: {card_line('clocks.sm,clocks.max.sm')}")
+        for c, (label, shape, tests, rots) in zip(par.calls["small_eig"], par.eig_calls):
+            B = int(np.prod(shape[:-2], dtype=np.int64))
+            # the kernel by graph replay (torch.profiler has dropped hand
+            # kernels' records late in a run); torch.linalg syncs, so profiled
+            log(f"  small_eig {label} {shape}: device {replay_ms(c.kern, sync):.4f} ms (graph "
+                f"replay), torch.linalg {device_ms([c.lib], sync):.4f} ms (profiled), bound "
+                f"{bounds.bound([c.work])[0]:.4f} ms; sweeps a matrix {(tests - B) / B:.2f} "
+                f"(convergence tests less one), rotations {rots} ({rots / B:.1f} a matrix)")
 
     # ---- 5b. bench_torch.py's sections, counted ----
     clock.mark("phase 5")
@@ -4222,7 +4323,8 @@ def run(device: str, h=H, w=W, b=B, k=K):
     slam_launches, slam_ref = slam_phase(dev, sync, par, h, w, k)
     clock.mark("phase 4d")
     # (on the CPU its own test runs it: tests/test_torch_online_correction.py)
-    online_launches = online_phase(dev, sync, None if dev.type == "cuda" else ())
+    online_launches = online_phase(dev, sync, None if dev.type == "cuda" else (),
+                                   workers=ONLINE_WORKERS)
     clock.mark("phase 4d, online loop correction")
 
     # ---- 4e. the command line and the feature server, counted ----

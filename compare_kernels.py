@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Time the port's redesigned kernels against another checkout's, on one GPU.
 
-    python3 compare_kernels.py --baseline DIR
+    python3 compare_kernels.py --baseline DIR [--small-eig-only] [--boot BOOT]
 
 DIR is the root of another checkout of this repository (for example the
 parent commit, unpacked with `git archive` into a directory that
 .gitignore lists).  The script loads that checkout's `detect_scores`,
-`match_best2`, `grad_stencil` and `sample_gradients` wrappers and CUDA
-sources beside this checkout's, builds both, and on the main path's inputs
+`match_best2`, `grad_stencil`, `sample_gradients` and `small_eig` wrappers
+and CUDA sources beside this checkout's, builds both, and on the main path's inputs
 (4 x 480x640 frames, K = 2048: the 5 octaves' DoG and Gaussian volumes, the 3
 consecutive pairs), the facade's 3 guided calls (4096-padded sets, gates H,
 F, H+F) and its descriptor-only call (`describe_at_keypoints` at frame 0's
@@ -30,7 +30,16 @@ own keypoints) it:
   4. times the host cost of one launch through each checkout's
      `ops/_build.py::Kernel.launch`: a host clock over 2,000 launches of the
      `grad_stencil` kernel on a 1 x 4 x 8 x 8 volume, synchronised once at
-     the end, in the order baseline, this, this, baseline.
+     the end, in the order baseline, this, this, baseline;
+  5. runs each checkout's `small_eig` on the calls `two_view_reconstruct`
+     makes on chip_smoke.py's phase-4c pair (recorded with this checkout's
+     kernel) and on the bootstrap normal matrices that `ransac_witness.py
+     record` saved as BOOT/boot_<seed>.pt: per call the f32 outputs that are
+     bit-identical, the largest difference among the rest (the eigh of n =
+     3, 4 and the SVD must be identical throughout), and device ms in the
+     order baseline, this, this, baseline.
+
+`--small-eig-only` runs item 5 alone.
 
 Prints one JSON line with every number as its last line.  Imports nothing
 of JAX.
@@ -278,10 +287,58 @@ def bundle_adjustment(root: Path, sync):
             "sync_warnings": syncs}
 
 
+def small_eig_designs(root: Path, sync, boot: Path | None, dev: str = "cuda"):
+    """small_eig, the baseline's design against this checkout's (item 5;
+    `dev` "cpu" only to rehearse the control flow: both routes torch.linalg)."""
+    from chip_smoke import stereo_pair
+    from siftgpu_tpu_torch.ops import small_eig
+    from siftgpu_tpu_torch.pipeline import twoview
+
+    old = baseline_wrapper(root, "small_eig")
+    if dev == "cuda":
+        old.KERNEL.lib()
+    images, intr_t, _ = stereo_pair(torch.device(dev))
+    eighs, svds = [], []
+    with recording(small_eig, "eigh_sym", eighs), recording(small_eig, "svd3", svds):
+        twoview.two_view_reconstruct(images, intr_t, SiftConfig(height=H, width=W, max_keypoints=K),
+                                     MatchConfig(max_sift=K, max_match=K),
+                                     torch.Generator(device=dev).manual_seed(7))
+    calls = ([(a[0], "eigh", "two-view") for a in eighs]
+             + [(a[0], "svd3", "two-view") for a in svds])
+    for path in sorted(boot.glob("boot_*.pt")) if boot else []:
+        calls.append((torch.load(path)["M"].to(dev), "eigh", f"bootstrap {path.stem}"))
+    rows = []
+    for x, kind, label in calls:
+        fo, fn = (old.eigh_sym, small_eig.eigh_sym) if kind == "eigh" else (old.svd3,
+                                                                              small_eig.svd3)
+        a, b = fo(x), fn(x)
+        sync()
+        same = [int((p.view(torch.int32) == q.view(torch.int32)).sum()) for p, q in zip(a, b)]
+        size = [p.numel() for p in a]
+        diff = max(float((p - q).abs().max()) for p, q in zip(a, b))
+        if x.shape[-1] != 9 and same != size:
+            raise AssertionError(f"small_eig {kind} {tuple(x.shape)}: the designs differ")
+        t = [device_ms([lambda f=f: f(x)], sync, 5) for f in (fo, fn, fn, fo)]
+        log(f"  small_eig {kind} ({label}, {tuple(x.shape)}): identical "
+            + ", ".join(f"{s_}/{n_}" for s_, n_ in zip(same, size))
+            + f" (largest difference {diff:.3g}); device ms baseline {t[0]:.4f} / this "
+            f"{t[1]:.4f} / this {t[2]:.4f} / baseline {t[3]:.4f}")
+        rows.append({"call": label, "kind": kind, "shape": list(x.shape), "identical": same,
+                     "entries": size, "max_diff": diff, "device_ms": t})
+    nine = [r for r in rows if r["kind"] == "eigh" and r["shape"][-1] == 9]
+    same, size = (sum(sum(r[k]) for r in nine) for k in ("identical", "entries"))
+    log(f"  n = 9: {same} of {size} f32 outputs bit-identical to the baseline's "
+        f"({100.0 * same / max(size, 1):.4f}%)")
+    return {"calls": rows, "n9_identical": same, "n9_entries": size}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", required=True, type=Path,
                     help="root of the checkout to compare against")
+    ap.add_argument("--small-eig-only", action="store_true", help="run item 5 alone")
+    ap.add_argument("--boot", type=Path, default=None,
+                    help="directory of ransac_witness.py record's boot_<seed>.pt")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("compare_kernels: no CUDA device", file=sys.stderr)
@@ -289,6 +346,12 @@ def main() -> int:
     root = args.baseline.resolve()
     sync = torch.cuda.synchronize
     log(card_line())
+    if args.small_eig_only:
+        _build.build_all()
+        log("small_eig, the baseline's design against this one's")
+        out = {"card": card_line(), "small_eig": small_eig_designs(root, sync, args.boot)}
+        print(json.dumps(out))
+        return 0
     old_ds = baseline_wrapper(root, "detect_scores")
     old_mk = baseline_wrapper(root, "match_kernel")
     old_gs = baseline_wrapper(root, "grad_stencil")
@@ -341,6 +404,9 @@ def main() -> int:
         out[name + "_sum"] = t.tolist()
         log(f"  {name}, summed over the path's calls: baseline {t[0]:.4f} / this {t[1]:.4f} / "
             f"this {t[2]:.4f} / baseline {t[3]:.4f} ms")
+
+    log("small_eig, the baseline's design against this one's")
+    out["small_eig"] = small_eig_designs(root, sync, args.boot)
 
     log("host cost of one launch (grad_stencil on 1 x 4 x 8 x 8)")
     old_build = load_module("_baseline_build", root / "siftgpu_tpu_torch" / "ops" / "_build.py")

@@ -141,12 +141,17 @@ def small_eig_work(kind: str, B: int, n: int, tests: int, rotations: int) -> Wor
     convergence tests and `rotations` rotations, summed over the batch, as
     the plain version counts them): a test sums the squares of the upper
     triangle and the diagonal (2 ops an entry) and compares (2); a rotation
-    forms theta, t, c, s (15) and updates two rows and two columns of A and
-    two columns of V (6 ops an entry each: 18 n).  Per matrix the load and
-    symmetrisation, the stable sort and the signs (3 n^2); "svd3" adds A^T A
-    (45), A V (45) and U's columns, norms, the cross product and S (60)."""
+    forms theta, t, c, s (15) and updates two columns of V (6 ops an entry:
+    6 n) and A: for n = 3, 4 two rows and two columns (12 n); for n = 9,
+    whose rounds rotate the 2 x 2 blocks of the upper block triangle and
+    mirror them, its columns in the blocks above it and its rows in those
+    to its right (6 (n + 2) = 66 wherever it sits in the round).  Per matrix
+    the load and symmetrisation, the stable sort and the signs (3 n^2);
+    "svd3" adds A^T A (45), A V (45) and U's columns, norms, the cross
+    product and S (60)."""
     per_test = 2 * (n * (n - 1) // 2 + n) + 2
-    ops = tests * per_test + rotations * (15 + 18 * n) + B * 3 * n * n
+    per_rotation = 15 + 6 * n + (6 * (n + 2) if n == 9 else 12 * n)
+    ops = tests * per_test + rotations * per_rotation + B * 3 * n * n
     if kind == "eigh":
         nbytes = B * (n * n + n + n * n) * F32
     else:

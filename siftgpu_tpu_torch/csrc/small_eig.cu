@@ -1,6 +1,6 @@
 // small_eig: batched symmetric eigendecompositions (n = 3, 4, 9) and 3 x 3
-// singular value decompositions, one thread per matrix, by cyclic Jacobi in
-// float64.
+// singular value decompositions by Jacobi in float64: one thread per matrix
+// for n = 3, 4 and the SVD, one warp per matrix for n = 9.
 //
 // Replaces no TPU kernel.  The reference computes these with XLA's
 // `jnp.linalg.eigh` / `jnp.linalg.svd` (siftgpu_tpu/geometry/epipolar.py's
@@ -16,17 +16,24 @@
 //
 // eigh (small_eigh_launch): M [B, n, n] f32, its lower triangle read (the
 // matrix is taken as symmetric, as torch.linalg.eigh's default).  In
-// float64: cyclic sweeps over the pairs p < q in row order, each a Jacobi
-// rotation J (theta = (a_qq - a_pp) / (2 a_pq), t the smaller root of
-// t^2 + 2 theta t - 1 = 0, c = 1 / sqrt(t^2 + 1), s = t c) applied as A J,
-// then J^T (A J), a_pq = a_qp = 0, V J; a pair with a_pq == 0 is skipped.
-// Before each sweep the matrix stops when the sum of its squared
-// off-diagonal entries (upper triangle, row order) is <= 1e-30 times the
-// sum of its squared diagonal entries (a zero matrix stops at once), and
-// after 20 sweeps at the latest.  Eigenvalues ascending (a stable sort of
-// the diagonal: equal values keep their index order), each eigenvector's
-// largest-magnitude component positive (the first of equal magnitudes).
-// Out: w [B, n] and V [B, n, n] f32, the vectors in V's columns.
+// float64, sweeps of Jacobi rotations J (theta = (a_qq - a_pp) / (2 a_pq),
+// t the smaller root of t^2 + 2 theta t - 1 = 0, c = 1 / sqrt(t^2 + 1),
+// s = t c), each applied as A J, then J^T (A J), a_pq = a_qp = 0, V J; a
+// pair with a_pq == 0 is skipped.  n = 3, 4: a sweep is the pairs p < q in
+// row order, one rotation after another.  n = 9: a sweep is the 9 rounds
+// of kRounds9, each 4 disjoint pairs (and the pad index 9 with the fifth
+// index, which does nothing), every pair p < q once a sweep; a round forms
+// its rotations from the round's A, then applies them together: each 2 x 2
+// block (pair i rows, pair j columns, i <= j in the round's order) becomes
+// R_i^T (A R_j), the column rotation first, and is mirrored into block
+// (j, i), so A stays exactly symmetric.  Before each sweep the matrix
+// stops when the sum of its squared off-diagonal entries (upper triangle,
+// row order) is <= 1e-30 times the sum of its squared diagonal entries (a
+// zero matrix stops at once), and after 20 sweeps at the latest.
+// Eigenvalues ascending (a stable sort of the diagonal: equal values keep
+// their index order), each eigenvector's largest-magnitude component
+// positive (the first of equal magnitudes).  Out: w [B, n] and V [B, n, n]
+// f32, the vectors in V's columns.
 //
 // svd3 (small_svd3_launch): A [B, 3, 3] f32.  In float64: the eigh above
 // of A^T A (each entry summed over k = 0, 1, 2 in that order), its vectors
@@ -43,13 +50,32 @@
 // nothing the f32 outputs can show (a singular value near 0 comes from
 // |u_3 . b_3|, not from the square root of an eigenvalue).
 //
-// What bounds it on the H100: float64 arithmetic and the latency of one
-// thread's dependent chain — a 9 x 9 matrix takes ~7 sweeps of 36
-// rotations, each ~80 dependent float64 operations; bytes are nothing
-// (400 B in and out per 9 x 9 matrix).  The design is the simplest that is
-// right: one thread per matrix, 128 threads a block, the matrix and its
-// vectors in per-thread arrays (registers for n <= 4, local memory for
-// n = 9).
+// What bounds it on the H100: the latency of float64 chains; bytes are
+// nothing (400 B in and out per 9 x 9 matrix) and the operations far
+// below the f64 rate.  n = 9 (the two-view path's [512, 9, 9] eight-point
+// solves and its lone [9, 9] refits, where the time went): one thread per
+// matrix ran ~7 sweeps of 36 dependent rotations, its 9 x 9 arrays in local
+// memory, and a [512, 9, 9] call filled 4 SMs.  Now one warp per matrix,
+// 4 warps a block ([512, 9, 9]: 128 blocks on 132 SMs), A (padded to 10 x
+// 10) and V in float64 in shared memory (1.6 KB a warp).  A sweep's 36
+// dependent rotations become 9 rounds of two phases: lanes 1-4 form the
+// round's 4 rotations (a divide, a square root, a reciprocal, a square root
+// and a reciprocal in a row: the critical path), then every lane runs one
+// code on one item, in place: lanes 0-13 a 2 x 2 block of A (two dependent
+// multiply-subtracts an entry, then the mirror), lanes 14-25 three rows of
+// V by one rotation.  The convergence test sums in one lane (the
+// off-diagonal squares in lane 0, the diagonal in lane 1); the sort ranks
+// each diagonal entry in its own lane.  n = 3, 4 and the SVD keep one
+// thread per matrix in registers: the [4, N, 4, 4] triangulation solves
+// already fill the card, the 3 x 3 calls sit at launch latency.
+//
+// Arithmetic goes through shared memory in phases (`warp_phase`: each lane
+// runs the phase, then the warp synchronises), and within a phase no two
+// lanes touch one entry; no value moves between lanes otherwise.  So the
+// arithmetic can be checked on a host without nvcc: compile this file's
+// anonymous namespace with -ffp-contract=off, SIFT_HOST_CHECK defined, the
+// CUDA keywords defined away and `warp_phase` a loop over the 32 lanes
+// (tests/test_torch_small_eig.py does).
 
 #include "common.cuh"
 
@@ -229,6 +255,194 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- n = 9: one warp per matrix ----
+
+#ifndef SIFT_HOST_CHECK
+// One phase of a warp's work: every lane runs `body(lane)`, then the warp
+// synchronises.  Phases share values through shared memory only.
+template <class Body>
+__device__ __forceinline__ void warp_phase(Body body) {
+  body(static_cast<int>(threadIdx.x & 31u));
+  __syncwarp();
+}
+#endif
+
+constexpr int kWarps9 = 4;   // matrices (warps) a block
+constexpr int kPad9 = 9;     // the index that pads 0..8 to 10
+// Lane L < 14 updates block (i, j) of a round, i and j its nibble L of
+// these: the pairs i <= j of slots 0..4 in row order but (0, 0), decoded in
+// registers (a decoding loop would run a different count in each lane).
+constexpr unsigned long long kBlockI9 = 0x43322211110000ull;
+constexpr unsigned long long kBlockJ9 = 0x44343243214321ull;
+
+// The round-robin schedule: round r pairs index r with the pad, and
+// (r + k) mod 9 with (r - k) mod 9 for k = 1..4, each pair as (p < q).
+// Every pair p < q of 0..8 appears once in the 9 rounds.
+__constant__ int kRounds9[9][5][2] = {
+    {{0, 9}, {1, 8}, {2, 7}, {3, 6}, {4, 5}},
+    {{1, 9}, {0, 2}, {3, 8}, {4, 7}, {5, 6}},
+    {{2, 9}, {1, 3}, {0, 4}, {5, 8}, {6, 7}},
+    {{3, 9}, {2, 4}, {1, 5}, {0, 6}, {7, 8}},
+    {{4, 9}, {3, 5}, {2, 6}, {1, 7}, {0, 8}},
+    {{5, 9}, {4, 6}, {3, 7}, {2, 8}, {0, 1}},
+    {{6, 9}, {5, 7}, {4, 8}, {0, 3}, {1, 2}},
+    {{7, 9}, {6, 8}, {0, 5}, {1, 4}, {2, 3}},
+    {{8, 9}, {0, 7}, {1, 6}, {2, 5}, {3, 4}},
+};
+
+// A warp's matrix in shared memory, and its round's pairs and rotations by
+// slot (slot 0 holds the pad pair and never rotates).  A is padded to 10 x
+// 10: row and column 9 (the pad) stay 0, so every block is 2 x 2.
+struct Eig9 {
+  double a[10][10];
+  double v[9][9];
+  double c[5], s[5];
+  int p[5], q[5], rot[5];
+  double off, dd;
+  int perm[9];
+};
+
+// Lane `slot` (0..4) of round r: the slot's pair and its rotation.
+__device__ __forceinline__ void rotation9(Eig9& w, int slot, int r) {
+  const int p = kRounds9[r][slot][0], q = kRounds9[r][slot][1];
+  const double apq = w.a[p][q];
+  const int rot = q != kPad9 && apq != 0.0;
+  double c = 1.0, s = 0.0;
+  if (rot) {
+    const double theta = (w.a[q][q] - w.a[p][p]) / (2.0 * apq);
+    double t = 1.0 / (fabs(theta) + sqrt(theta * theta + 1.0));
+    if (theta < 0.0) t = -t;
+    c = 1.0 / sqrt(t * t + 1.0);
+    s = t * c;
+  }
+  w.p[slot] = p;
+  w.q[slot] = q;
+  w.c[slot] = c;
+  w.s[slot] = s;
+  w.rot[slot] = rot;
+}
+
+// One lane's share of a round, in place (no two lanes touch one entry):
+// lanes 0-13 the 2 x 2 blocks (slot i rows, slot j columns) i <= j of A
+// but (0, 0), which does not change: R_i^T (A R_j), the column rotation
+// first, mirrored into block (j, i) (A stays exactly symmetric), a rotated
+// pair's own a_pq, a_qp set to 0; lanes 14-25 rows 3t..3t+2 of V times
+// slot j's rotation (t = 0..2, j = 1..4).  Both are rows x0, x1 (, x2) by
+// the columns of slot j: one code for every lane.
+__device__ __forceinline__ void update9(Eig9& w, int lane) {
+  if (lane >= 26) return;
+  const bool on_a = lane < 14;
+  int i, j;
+  if (on_a) {
+    i = static_cast<int>((kBlockI9 >> (4 * lane)) & 15u);
+    j = static_cast<int>((kBlockJ9 >> (4 * lane)) & 15u);
+  } else {
+    i = 0;        // V: no row rotation (slot 0 never rotates)
+    j = 1 + (lane - 14) % 4;
+  }
+  const int t = (lane - 14) / 4;
+  const int x0 = on_a ? w.p[i] : 3 * t, x1 = on_a ? w.q[i] : 3 * t + 1, x2 = 3 * t + 2;
+  const int yp = w.p[j], yq = w.q[j];
+  double* m0 = on_a ? &w.a[x0][0] : &w.v[x0][0];
+  double* m1 = on_a ? &w.a[x1][0] : &w.v[x1][0];
+  const double cj = w.c[j], sj = w.s[j], ci = w.c[i], si = w.s[i];
+  const bool rj = w.rot[j], ri = w.rot[i];
+  // A R_j: columns yp, yq of each row
+  const double a0p = m0[yp], a0q = m0[yq], a1p = m1[yp], a1q = m1[yq];
+  const double b0p = rj ? cj * a0p - sj * a0q : a0p, b0q = rj ? sj * a0p + cj * a0q : a0q;
+  const double b1p = rj ? cj * a1p - sj * a1q : a1p, b1q = rj ? sj * a1p + cj * a1q : a1q;
+  if (!on_a) {   // V's third row
+    const double a2p = w.v[x2][yp], a2q = w.v[x2][yq];
+    w.v[x2][yp] = rj ? cj * a2p - sj * a2q : a2p;
+    w.v[x2][yq] = rj ? sj * a2p + cj * a2q : a2q;
+  }
+  // R_i^T (A R_j): rows x0 = p_i, x1 = q_i
+  double c0p = ri ? ci * b0p - si * b1p : b0p, c1p = ri ? si * b0p + ci * b1p : b1p;
+  double c0q = ri ? ci * b0q - si * b1q : b0q, c1q = ri ? si * b0q + ci * b1q : b1q;
+  if (on_a && i == j && ri) c0q = c1p = 0.0;
+  m0[yp] = c0p;
+  m0[yq] = c0q;
+  m1[yp] = c1p;
+  m1[yq] = c1q;
+  if (on_a && i != j) {
+    w.a[yp][x0] = c0p;
+    w.a[yq][x0] = c0q;
+    w.a[yp][x1] = c1p;
+    w.a[yq][x1] = c1q;
+  }
+}
+
+// The eigh of one 9 x 9 matrix m (f32, lower triangle read) by one warp:
+// w ascending into wo, the signed vectors into vo's columns.
+__device__ void eigh9_warp(Eig9& w, const float* m, float* wo, float* vo) {
+  warp_phase([&](int lane) {
+    for (int e = lane; e < 100; e += 32) {
+      const int i = e / 10, j = e % 10;
+      w.a[i][j] = i < 9 && j < 9 ? static_cast<double>(i >= j ? m[i * 9 + j] : m[j * 9 + i])
+                                 : 0.0;
+      if (i < 9 && j < 9) w.v[i][j] = i == j ? 1.0 : 0.0;
+    }
+  });
+  for (int sweep = 0; sweep < kMaxSweeps; ++sweep) {
+    warp_phase([&](int lane) {   // unrolled: the loads issue at once, the sums stay in order
+      if (lane == 0) {
+        double off = 0.0;
+#pragma unroll
+        for (int p = 0; p < 8; ++p)
+#pragma unroll
+          for (int q = p + 1; q < 9; ++q) off = off + w.a[p][q] * w.a[p][q];
+        w.off = off;
+      } else if (lane == 1) {
+        double dd = 0.0;
+#pragma unroll
+        for (int i = 0; i < 9; ++i) dd = dd + w.a[i][i] * w.a[i][i];
+        w.dd = dd;
+      }
+    });
+    if (w.off <= kTol * w.dd) break;
+    for (int r = 0; r < 9; ++r) {
+      warp_phase([&](int lane) {
+        if (lane < 5) rotation9(w, lane, r);
+      });
+      warp_phase([&](int lane) { update9(w, lane); });
+    }
+  }
+  warp_phase([&](int lane) {   // a stable ascending sort of the diagonal by rank, NaN last
+    if (lane >= 9) return;
+    const double d = w.a[lane][lane];
+    int rank = 0;
+    for (int k = 0; k < 9; ++k) {
+      const double e = w.a[k][k];
+      const bool before = e < d || (d != d && e == e);
+      const bool tie = e == d || (d != d && e != e);
+      rank += before || (tie && k < lane);
+    }
+    w.perm[rank] = lane;
+  });
+  warp_phase([&](int lane) {
+    if (lane >= 9) return;
+    const int src = w.perm[lane];
+    wo[lane] = __double2float_rn(w.a[src][src]);
+    int big = 0;
+    for (int k = 1; k < 9; ++k)
+      if (fabs(w.v[k][src]) > fabs(w.v[big][src])) big = k;
+    const bool neg = w.v[big][src] < 0.0;
+    for (int k = 0; k < 9; ++k)
+      vo[k * 9 + lane] = __double2float_rn(neg ? -w.v[k][src] : w.v[k][src]);
+  });
+}
+
+__global__ void __launch_bounds__(kWarps9 * 32)
+    eigh9_kernel(const float* __restrict__ M, float* __restrict__ w, float* __restrict__ V,
+                 int batch) {
+  __shared__ Eig9 sh[kWarps9];
+  const int warp = static_cast<int>(threadIdx.x >> 5);
+  const int b = static_cast<int>(blockIdx.x) * kWarps9 + warp;
+  if (b >= batch) return;   // the whole warp
+  eigh9_warp(sh[warp], M + static_cast<size_t>(b) * 81, w + static_cast<size_t>(b) * 9,
+             V + static_cast<size_t>(b) * 81);
+}
+
 }  // namespace
 
 extern "C" int small_eigh_launch(const float* M, float* w, float* V, int batch, int n,
@@ -238,7 +452,9 @@ extern "C" int small_eigh_launch(const float* M, float* w, float* V, int batch, 
   switch (n) {
     case 3: eigh_kernel<3><<<blocks, kThreads, 0, stream>>>(M, w, V, batch); break;
     case 4: eigh_kernel<4><<<blocks, kThreads, 0, stream>>>(M, w, V, batch); break;
-    case 9: eigh_kernel<9><<<blocks, kThreads, 0, stream>>>(M, w, V, batch); break;
+    case 9:
+      eigh9_kernel<<<sift_ceil_div(batch, kWarps9), kWarps9 * 32, 0, stream>>>(M, w, V, batch);
+      break;
     default: return cudaErrorInvalidValue;
   }
   return static_cast<int>(cudaGetLastError());

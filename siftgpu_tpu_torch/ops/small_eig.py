@@ -19,12 +19,13 @@ build or launch failure raises (no cuSOLVER fallback).  CPU tensors take
 the reference through those calls, and the bootstrap's RANSAC refit rests
 on their rounding where hypotheses tie (ROADMAP §3), so the CPU route is
 not moved.  `eigh_sym_plain` / `svd3_plain` are the kernel's plain version,
-a step-by-step float64 mirror of its cyclic Jacobi (the algorithm and its
-conventions are in `csrc/small_eig.cu`'s header: eigenvalues by a stable
-sort, each eigenvector's largest-magnitude component positive, U's columns
-from A V, the third a cross product); built with -fmad=false, the kernel
-gives their bits.  The tests and `chip_smoke.py` use them; the main path
-does not.
+a step-by-step float64 mirror of its Jacobi (the algorithm and its
+conventions are in `csrc/small_eig.cu`'s header: cyclic sweeps for n = 3,
+4, sweeps of the round-robin rounds `ROUNDS9` for n = 9, eigenvalues by a
+stable sort, each eigenvector's largest-magnitude component positive, U's
+columns from A V, the third a cross product); built with -fmad=false, the
+kernel gives their bits.  The tests and `chip_smoke.py` use them; the main
+path does not.
 """
 
 from __future__ import annotations
@@ -36,12 +37,18 @@ import torch
 
 from . import _build
 
-__all__ = ["eigh_sym", "svd3", "eigh_sym_plain", "svd3_plain", "KERNEL", "SIZES"]
+__all__ = ["eigh_sym", "svd3", "eigh_sym_plain", "svd3_plain", "KERNEL", "SIZES", "ROUNDS9"]
 
 SIZES = (3, 4, 9)        # the n the kernel is compiled for
 MAX_SWEEPS = 20
 TOL = 1e-30              # a matrix stops when its off-diagonal squares <= TOL x diagonal squares
 RANK = 1e-13             # svd3: a second singular vector below RANK x s_1 is completed
+
+# n = 9: a sweep is 9 rounds of 5 disjoint pairs of 0..9 (the kernel's
+# kRounds9); round r pairs r with the pad index 9 (no rotation) and
+# (r + k) mod 9 with (r - k) mod 9 for k = 1..4, each as (p < q)
+ROUNDS9 = tuple(((r, 9),) + tuple((min((r + k) % 9, (r - k) % 9), max((r + k) % 9, (r - k) % 9))
+                                  for k in range(1, 5)) for r in range(9))
 
 KERNEL = _build.Kernel(
     "small_eig", "small_eig.cu",
@@ -62,9 +69,20 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x)
 
 
+def _rotation(app, aqq, apq):
+    """(c, s) of the Jacobi rotation that zeroes a_pq, elementwise."""
+    theta = (aqq - app) / (2.0 * apq)
+    t = 1.0 / (theta.abs() + _sqrt(theta * theta + 1.0))
+    t = torch.where(theta < 0.0, -t, t)
+    c = 1.0 / _sqrt(t * t + 1.0)
+    return c, t * c
+
+
 def _jacobi(a: torch.Tensor, v: torch.Tensor):
-    """The kernel's `jacobi` on a, v [B, N, N] float64, in place.  Returns
-    the convergence tests and the rotations it made, summed over the batch."""
+    """The kernel's Jacobi on a, v [B, N, N] float64, in place: cyclic
+    sweeps (`jacobi`) for N = 3, 4, the rounds of `ROUNDS9` (`eigh9_warp`)
+    for N = 9.  Returns the convergence tests and the rotations it made,
+    summed over the batch."""
     B, N, _ = a.shape
     pairs = [(p, q) for p in range(N - 1) for q in range(p + 1, N)]
     active = torch.ones(B, dtype=torch.bool, device=a.device)
@@ -80,15 +98,14 @@ def _jacobi(a: torch.Tensor, v: torch.Tensor):
         active = active & ~(off <= TOL * dd)
         if not bool(active.any()):
             break
+        if N == 9:
+            rotations += _sweep9(a, v, active)
+            continue
         for p, q in pairs:
             apq = a[:, p, q].clone()
             rot = active & (apq != 0.0)
             rotations += int(rot.sum())
-            theta = (a[:, q, q] - a[:, p, p]) / (2.0 * apq)
-            t = 1.0 / (theta.abs() + _sqrt(theta * theta + 1.0))
-            t = torch.where(theta < 0.0, -t, t)
-            c = 1.0 / _sqrt(t * t + 1.0)
-            s = t * c
+            c, s = _rotation(a[:, p, p], a[:, q, q], apq)
             r, c, s = rot[:, None], c[:, None], s[:, None]
             for idx in ((slice(None), slice(None), p), (slice(None), slice(None), q)), \
                     ((slice(None), p, slice(None)), (slice(None), q, slice(None))):
@@ -101,6 +118,56 @@ def _jacobi(a: torch.Tensor, v: torch.Tensor):
             v[:, :, p] = torch.where(r, c * vp - s * vq, vp)
             v[:, :, q] = torch.where(r, s * vp + c * vq, vq)
     return tests, rotations
+
+
+def _round9_tables(r: int):
+    """Round r's index tables over 0..8: each index's slot (0 for the one
+    paired with the pad), its partner (itself for slot 0) and whether it is
+    its pair's p."""
+    slot, partner, is_p = [0] * 9, list(range(9)), [False] * 9
+    for k, (p, q) in enumerate(ROUNDS9[r]):
+        if q == 9:
+            continue
+        slot[p] = slot[q] = k
+        partner[p], partner[q] = q, p
+        is_p[p] = True
+    return slot, partner, is_p
+
+
+def _rotate(x, xp, c, s, rot, is_p):
+    """x's entries of a rotated pair: c x - s x' where x is the pair's p,
+    s x' + c x where it is q (x' its partner's entry); x where not rotated."""
+    return torch.where(rot, torch.where(is_p, c * x - s * xp, s * xp + c * x), x)
+
+
+def _sweep9(a: torch.Tensor, v: torch.Tensor, active: torch.Tensor) -> int:
+    """One sweep of the kernel's `eigh9_warp` on a, v [B, 9, 9] float64, in
+    place, for the `active` matrices: per round the 4 rotations from the
+    round's A, then every entry of R^T (A R) (columns first) and of V R,
+    the blocks of slots i > j taken as the transposes of blocks (j, i), a
+    rotated pair's a_pq, a_qp set to 0.  Returns the rotations made."""
+    dev = a.device
+    rotations = 0
+    for r in range(9):
+        slot, partner, is_p = (torch.tensor(t, device=dev) for t in _round9_tables(r))
+        P = torch.tensor([p for p, _ in ROUNDS9[r][1:]], device=dev)
+        Q = torch.tensor([q for _, q in ROUNDS9[r][1:]], device=dev)
+        apq = a[:, P, Q]
+        rot = active[:, None] & (apq != 0.0)                          # [B, 4], slots 1..4
+        rotations += int(rot.sum())
+        c, s = _rotation(a[:, P, P], a[:, Q, Q], apq)
+        pad = lambda t, fill: torch.cat([torch.full_like(t[:, :1], fill), t], 1)[:, slot]
+        c, s, rot = pad(c, 1.0), pad(s, 0.0), pad(rot, False)         # [B, 9] by index
+        cols = lambda t: t[:, None, :]
+        rows = lambda t: t[:, :, None]
+        b = _rotate(a, a[:, :, partner], cols(c), cols(s), cols(rot), is_p[None, :])
+        a_new = _rotate(b, b[:, partner, :], rows(c), rows(s), rows(rot), is_p[:, None])
+        own = (slot[:, None] == slot[None, :]) & ~torch.eye(9, dtype=torch.bool, device=dev)
+        a_new = torch.where(own & rows(rot), 0.0, a_new)
+        upper = slot[:, None] <= slot[None, :]
+        a.copy_(torch.where(upper, a_new, a_new.transpose(-1, -2)))
+        v.copy_(_rotate(v, v[:, :, partner], cols(c), cols(s), cols(rot), is_p[None, :]))
+    return rotations
 
 
 def _eigh_sorted(a: torch.Tensor, counts: list | None = None):

@@ -37,11 +37,12 @@ CASES = {
     "sample_gradients": (bounds.sample_gradients_work(3, 120, 160, 512, 256),
                          1_048_576 + 2048 + 230_400 + 1_048_576, {"f32": 32 * 131_072}, "bytes"),
     # the two-view path's 512 minimal-set 9 x 9 eighs (3392 convergence tests
-    # of 2 x (36 + 9) + 2 ops, 103,680 rotations of 15 + 18 x 9): M read, w
-    # and V written; per matrix 3 x 81 for the load, sort and signs
+    # of 2 x (36 + 9) + 2 ops, 103,680 rotations of 15 + 54 for V + 66 for
+    # the blocks of A): M read, w and V written; per matrix 3 x 81 for the
+    # load, sort and signs
     "small_eig eigh": (bounds.small_eig_work("eigh", 512, 9, 3392, 103_680),
                        512 * (81 + 9 + 81) * 4,
-                       {"f64": 3392 * 92 + 103_680 * 177 + 512 * 243}, "operations"),
+                       {"f64": 3392 * 92 + 103_680 * 135 + 512 * 243}, "operations"),
     # its 512 3 x 3 SVDs (2038 tests of 14 ops, 4578 rotations of 69): A
     # read, U, S, Vh written; per matrix 27 + 150
     "small_eig svd3": (bounds.small_eig_work("svd3", 512, 3, 2038, 4578),
