@@ -25,7 +25,10 @@ line of standard output.  Sections, with bench.py's lines:
   stages  (:230-244) `pipeline/profile.py::profile_extraction` on the 640
           section's frames, 40 iterations a stage.  Its rows are the port's:
           one `orient+desc` row where the reference's CPU run shows `orient`
-          and `describe`, and `detect` includes the prefilter.
+          and `describe`, and `detect` includes the prefilter.  As the
+          reference's rows time compiled stages, each row times replays of
+          its stage captured as a CUDA graph for the call (input copies and
+          output clones included), not eager calls.
 
 Protocol: bench.py's, on the card.  A warm-up call (its seconds on stderr),
 then 5 reps of N calls queued back to back, each rep ending in one

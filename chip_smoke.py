@@ -232,7 +232,23 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      beside the eager call's device time (torch.profiler), logged as a
      `{"graphs": [...]}` line with the card's line; before them the main
      path's synchronising calls per iteration, after them a capture with
-     a host sync inside must raise, naming the entry point.
+     a host sync inside must raise, naming the entry point (and, in a
+     capture family, the family).  Then -obo's programs, one shared pool:
+     `extract._obo_prep_jit`, `_obo_octave_jit` for every octave (fed the
+     eager chain's base) and `_obo_assemble_jit` on phase 4's batch and
+     that batch rolled by one and two, each as above; the whole chain
+     `extract_features_obo_jit` bit-identical to the eager
+     `extract_features_obo` and to `extract_features` in every valid
+     slot (eager against replayed ms); the memory cap on bench.py's
+     2160x3840 frame (seed 9, K = 8192): the eager peaks of
+     `extract_features` and `extract_features_obo`, the pool of
+     `extract_features_jit`, the -obo family's shared pool, which must be
+     below 0.95 x the fused pool (tests/test_obo.py's bound), and the sum
+     of the same programs' private pools; and the `-v 2` stages
+     (`pipeline/profile.py::STAGES`, one family) on phase 4's batch as
+     above, the table of eager against replayed ms per stage, and a second
+     `profile_extraction` call that leaves reserved memory within 32 MiB
+     of its level before the call.
 
 Any failed check raises, a failed rank included.  The last three lines
 are the card's name and power limit, one JSON object with a record per
@@ -3658,6 +3674,10 @@ def bench_phase(dev):
 # ---------------- phase 5c: the captured entry points (core/graphs.py) ----------------
 
 GRAPH_TIMED_CALLS = 50
+OBO_CAP = (2160, 3840, 8192, 9)     # bench.py:171-172: the 4k frame's size, K and texture seed
+OBO_CAP_SHARE = 0.95                # tests/test_obo.py:65: -obo's peak under the fused program's
+STAGE_RESERVED_MIB = 32             # -v 2: reserved memory a call may leave behind
+MIB = 2 ** 20
 
 
 def _pytree_clone(tree):
@@ -4099,14 +4119,16 @@ def graphs_phase(dev, sync, images, feats, h=H, w=W, k=K):
          [((images[i:i + 1], kp[i:i + 1], cfg), {}) for i in range(3)])
 
     if cuda:   # no fallback: a capture that fails raises, naming the entry point
-        try:
-            graphs.graphed(host_sync, "host_sync_jit")(torch.ones(4, device=dev))
-        except RuntimeError as e:
-            if not str(e).startswith("host_sync_jit: capture failed for the signature"):
-                raise
-            log(f"  a host sync under capture raises: {str(e).splitlines()[0][:160]}")
-        else:
-            raise AssertionError("a capture with a host sync inside did not raise")
+        for fam in (None, graphs.GraphFamily("host sync")):
+            try:
+                graphs.graphed(host_sync, "host_sync_jit", fam)(torch.ones(4, device=dev))
+            except RuntimeError as e:
+                if not str(e).startswith("host_sync_jit: capture failed for the signature") or (
+                        fam and "in the family 'host sync'" not in str(e)):
+                    raise
+                log(f"  a host sync under capture raises: {str(e).splitlines()[0][:200]}")
+            else:
+                raise AssertionError("a capture with a host sync inside did not raise")
     for jit in (extract.extract_features_jit, match.match_descriptors_jit,
                 match.match_descriptors_batch_jit, slam._track_step_jit, slam._match_kf_jit,
                 slam._loop_match_jit, pnp.pnp_gn_jit, ba.run_ba_jit,
@@ -4114,10 +4136,245 @@ def graphs_phase(dev, sync, images, feats, h=H, w=W, k=K):
                 redetect.describe_at_keypoints_jit, ba.refine_points_jit,
                 pg.optimize_pose_graph_jit, epipolar.ransac_essential_jit):
         jit.captures.clear()    # the later phases run with the memory they had before
+
+    clock = PhaseClock()
+    obo_cases(dev, sync, images, cfg, case)
+    clock.mark("phase 5c, the -obo programs")
+    memory = obo_memory_cap(dev, sync, card) if cuda else None
+    clock.mark("phase 5c, the -obo memory cap")
+    stage_cases(dev, sync, images, cfg, mcfg, case, card)
+    clock.mark("phase 5c, the -v 2 stages")
     if cuda:
         log(f"  {card_line()}")
-    log(json.dumps({"card": card, "graphs": records}))
+    log(json.dumps({"card": card, "graphs": records, "obo_memory": memory}))
     return records
+
+
+def obo_chain(x, cfg):
+    """The eager -obo chain on x: (each octave's base, with the last
+    octave's next base; each octave's candidate dict)."""
+    from siftgpu_tpu_torch.frontend import extract
+
+    bases, parts = [extract._obo_prep(x, cfg)], []
+    for o in range(cfg.octaves):
+        part, base = extract._obo_octave(bases[-1], cfg, o)
+        parts.append(part)
+        bases.append(base)
+    return bases, parts
+
+
+def obo_cases(dev, sync, images, cfg, case):
+    """Phase 5c, -obo: each program of the shared family (`graph_case`) on
+    phase 4's batch and that batch rolled by one and two, then the chain
+    `extract_features_obo_jit` against the eager `extract_features_obo`
+    (bits) and `extract_features` (every valid slot)."""
+    import torch
+
+    from siftgpu_tpu_torch.frontend import extract
+    from siftgpu_tpu_torch.ops import _build
+
+    B, h, w = images.shape
+    batches = [torch.roll(images, i, 0) for i in range(3)]
+    chains = [obo_chain(x, cfg) for x in batches]
+    case(f"_obo_prep_jit, {B} x {h}x{w}", extract._obo_prep_jit, extract._obo_prep,
+         [((x, cfg), {}) for x in batches])
+    for o in range(cfg.octaves):
+        case(f"_obo_octave_jit, octave {o}, {B} x {'x'.join(map(str, chains[0][0][o].shape[1:]))}",
+             extract._obo_octave_jit, extract._obo_octave,
+             [((bases[o], cfg, o), {}) for bases, _ in chains])
+    case(f"_obo_assemble_jit, {cfg.octaves} octaves", extract._obo_assemble_jit,
+         extract._obo_assemble, [((tuple(parts), cfg), {}) for _, parts in chains])
+
+    want = [extract.extract_features_obo(x, cfg) for x in batches]
+    got = [extract.extract_features_obo_jit(x, cfg) for x in batches]
+    sync()
+    differ = [i for i, (g, e) in enumerate(zip(got, want)) if not same_tree(g, e)]
+    if differ:
+        raise AssertionError(f"extract_features_obo_jit: calls {differ} differ from the eager "
+                             "extract_features_obo")
+    for x, g in zip(batches, got):
+        f = extract.extract_features(x, cfg)
+        m = f.mask
+        if not torch.equal(m, g.mask) or not all(torch.equal(a[m], b[m]) for a, b in zip(f, g)):
+            raise AssertionError("extract_features_obo_jit differs from extract_features")
+
+    def counted(fn):
+        for kern in _build.KERNELS.values():
+            kern.launches = 0
+        fn(images, cfg)
+        sync()
+        return {n: kern.launches for n, kern in _build.KERNELS.items() if kern.launches}
+
+    n_eager, n_jit = counted(extract.extract_features_obo), counted(extract.extract_features_obo_jit)
+    if n_eager != n_jit:
+        raise AssertionError(f"extract_features_obo_jit: launches {n_jit}, eager {n_eager}")
+    msg = ""
+    if dev.type == "cuda":
+        import bench_torch
+
+        e = bench_torch.event_stats(lambda: extract.extract_features_obo(images, cfg),
+                                    GRAPH_TIMED_CALLS)
+        r = bench_torch.event_stats(lambda: extract.extract_features_obo_jit(images, cfg),
+                                    GRAPH_TIMED_CALLS)
+        msg = (f"; ms per call (median/p90 of {GRAPH_TIMED_CALLS}) eager "
+               f"{e['median_ms']:.4f}/{e['p90_ms']:.4f}, replayed {r['median_ms']:.4f}/"
+               f"{r['p90_ms']:.4f}; the family's pool {extract.OBO_FAMILY.pool_bytes() / MIB:.1f} "
+               "MiB")
+    log(f"  extract_features_obo_jit, {B} x {h}x{w}: 3 calls bit-identical to the eager "
+        f"extract_features_obo and to extract_features in every valid slot; launches {n_jit}"
+        + msg)
+
+
+def pool_segments_mib(graphs_) -> float:
+    """The segments of the memory pools of `graphs_` (CUDA graphs) in the
+    allocator's snapshot, each pool once, MiB."""
+    import torch
+
+    pools = {tuple(g.pool()) for g in graphs_}
+    total = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                if tuple(seg["segment_pool_id"]) in pools)
+    if not total:
+        raise AssertionError(f"no segment of the pools {pools} in the allocator's snapshot")
+    return total / MIB
+
+
+def obo_memory_cap(dev, sync, card) -> dict:
+    """Phase 5c, -obo's memory cap on bench.py's 4k frame (`OBO_CAP`), in
+    MiB: the `max_memory_allocated` growth of an eager `extract_features`
+    and `extract_features_obo` call (each after a warm-up call), the pool
+    of `extract_features_jit`'s capture, the -obo family's shared pool (the
+    family released first, so it holds this signature's captures only)
+    and the sum of the same programs' pools captured one by one into
+    private pools; each pool as the growth of reserved memory its captures
+    caused (`Capture.pool_bytes`) and as its segments in the allocator's
+    snapshot.  Raises unless the shared pool is below `OBO_CAP_SHARE` x the
+    fused pool.  Releases every capture it made."""
+    import torch
+
+    from siftgpu_tpu_torch import SiftConfig
+    from siftgpu_tpu_torch.core import graphs
+    from siftgpu_tpu_torch.frontend import extract
+
+    h, w, k, seed = OBO_CAP
+    cfg = SiftConfig(height=h, width=w, max_keypoints=k)
+    x = torch.from_numpy(spatial_frame(h, w, seed)).to(dev)
+
+    def peak(fn):
+        fn()
+        sync()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        a0 = torch.cuda.memory_allocated(dev)
+        out = fn()
+        sync()
+        return (torch.cuda.max_memory_allocated(dev) - a0) / MIB, out
+
+    fused_peak, fused = peak(lambda: extract.extract_features(x, cfg))
+    obo_peak, obo = peak(lambda: extract.extract_features_obo(x, cfg))
+    jit = extract.extract_features_jit
+    key = jit.signature(x, cfg)[0]
+    jit(x, cfg)
+    fused_cap = jit.captures[key]
+    extract.OBO_FAMILY.release()
+    got = extract.extract_features_obo_jit(x, cfg)
+    sync()
+    if not same_tree(got, obo):
+        raise AssertionError(f"extract_features_obo_jit at {h}x{w} differs from the eager call")
+    m = fused.mask
+    if not torch.equal(m, got.mask) or not all(torch.equal(a[m], b[m]) for a, b in zip(fused, got)):
+        raise AssertionError(f"extract_features_obo_jit at {h}x{w} differs from extract_features")
+    family = [c for g in extract.OBO_FAMILY.members for c in g.captures.values()]
+    private = [graphs.graphed(fn, f"{fn.__name__} (private pool)")
+               for fn in (extract._obo_prep, extract._obo_octave, extract._obo_assemble)]
+    extract._obo_chain(x, cfg, *private)
+    private = [c for g in private for c in g.captures.values()]
+    mib = lambda caps: sum(c.pool_bytes for c in caps) / MIB
+    segs = lambda caps: pool_segments_mib(c.graph for c in caps)
+    out = dict(size=f"{h}x{w}", k=k, programs=len(family), fused_eager_peak_mib=fused_peak,
+               obo_eager_peak_mib=obo_peak, fused_pool_mib=mib([fused_cap]),
+               obo_family_pool_mib=extract.OBO_FAMILY.pool_bytes() / MIB,
+               obo_private_pools_mib=mib(private), fused_pool_segments_mib=segs([fused_cap]),
+               obo_family_pool_segments_mib=segs(family),
+               obo_private_pools_segments_mib=segs(private))
+    share = out["obo_family_pool_mib"] / out["fused_pool_mib"]
+    log(f"  -obo memory cap, 1 x {h}x{w}, K = {k} ({card}), MiB as reserved growth (segments in "
+        f"the allocator's snapshot): eager peak (max_memory_allocated growth) extract_features "
+        f"{fused_peak:.1f}, extract_features_obo {obo_peak:.1f}; extract_features_jit's pool "
+        f"{out['fused_pool_mib']:.1f} ({out['fused_pool_segments_mib']:.1f}); the -obo family's "
+        f"shared pool over its {len(family)} programs {out['obo_family_pool_mib']:.1f} "
+        f"({out['obo_family_pool_segments_mib']:.1f}), {share:.3f} of the fused pool; the same "
+        f"programs in private pools {out['obo_private_pools_mib']:.1f} "
+        f"({out['obo_private_pools_segments_mib']:.1f})")
+    del fused_cap, family, private
+    extract.OBO_FAMILY.release()
+    del jit.captures[key]
+    torch.cuda.empty_cache()
+    if not share < OBO_CAP_SHARE:
+        raise AssertionError(f"-obo: the family's pool is {share:.3f} of extract_features_jit's, "
+                             f"not below {OBO_CAP_SHARE}")
+    return out
+
+
+def stage_cases(dev, sync, images, cfg, mcfg, case, card):
+    """Phase 5c, `-v 2`: each stage of `pipeline/profile.py` captured in one
+    family (`graph_case`) on phase 4's batch and that batch rolled by one
+    and two, fed the eager stages' outputs; then `profile_extraction`
+    (replays) beside `time_stages` over the plain stages (eager), and a
+    second call, which must leave reserved memory within
+    `STAGE_RESERVED_MIB` of its level before it."""
+    import torch
+
+    from siftgpu_tpu_torch.core import graphs
+    from siftgpu_tpu_torch.pipeline import profile
+
+    st = profile.STAGES
+    batches = [torch.roll(images, i, 0) for i in range(3)]
+    inputs = {name: [] for name in st}
+    for x in batches:
+        pyr = st["pyramid"](x, cfg)
+        kps = st["detect"](pyr, cfg)
+        grads = st["gradients"](pyr, cfg)
+        fouts = st["orient+desc"](grads, kps, cfg)
+        feats = st["assemble"](kps, fouts, cfg)
+        for name, args in (("pyramid", (x, cfg)), ("detect", (pyr, cfg)),
+                           ("gradients", (pyr, cfg)), ("orient+desc", (grads, kps, cfg)),
+                           ("assemble", (kps, fouts, cfg)), ("match", (feats, mcfg))):
+            inputs[name].append((args, {}))
+    family = graphs.GraphFamily("-v 2 stages")
+    try:
+        for name, fn in st.items():
+            case(f"-v 2 stage {name}", graphs.graphed(fn, f"profile_extraction {name}", family),
+                 fn, inputs[name])
+    finally:
+        family.release()
+    B, h, w = images.shape
+    iters = 20
+    eager = profile.time_stages(st, images, cfg, iters, mcfg=mcfg)
+    replay = profile.profile_extraction(images, cfg, iters, mcfg=mcfg)
+    if list(eager) != list(replay):
+        raise AssertionError(f"-v 2: stages {list(replay)} against {list(eager)}")
+    second = "replayed" if dev.type == "cuda" else "through graphed stages (eager here)"
+    log(f"  -v 2 stage table, {B} x {h}x{w}, ms a call over {iters} calls ({card}): "
+        + ", ".join(f"{n} eager {eager[n] * 1e3:.3f} / {second} {replay[n] * 1e3:.3f}"
+                    for n in replay))
+    if dev.type == "cuda":
+        sync()
+        torch.cuda.empty_cache()
+        r0, before = torch.cuda.memory_reserved(dev), torch.cuda.memory_snapshot()
+        profile.profile_extraction(images, cfg, iters, mcfg=mcfg)
+        sync()
+        torch.cuda.empty_cache()
+        left = (torch.cuda.memory_reserved(dev) - r0) / MIB
+        old = {seg["address"]: seg["total_size"] for seg in before}
+        grown = [(seg["total_size"] / MIB, seg["allocated_size"] / MIB,
+                  tuple(seg["segment_pool_id"]), seg["stream"])
+                 for seg in torch.cuda.memory_snapshot()
+                 if old.get(seg["address"]) != seg["total_size"]]
+        log(f"  -v 2: a second profile_extraction leaves {left:.1f} MiB of reserved memory; "
+            f"segments new after it (MiB, allocated MiB, pool, stream): {grown}")
+        if left > STAGE_RESERVED_MIB:
+            raise AssertionError(f"-v 2: profile_extraction left {left:.1f} MiB reserved "
+                                 f"(at most {STAGE_RESERVED_MIB})")
 
 
 def graphs_alone(device: str, h=H, w=W, b=B, k=K):

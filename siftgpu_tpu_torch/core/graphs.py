@@ -8,11 +8,14 @@ the call's signature; tensors on two devices raise.  Nothing else turns
 capture on or off.
 
 The signature is each tensor argument's shape, dtype and device (tuples,
-lists and NamedTuples such as `BAProblem` are walked), whether each
-optional argument is None, and every other argument by value: configs
+lists and NamedTuples such as `BAProblem` are walked, and so is a dict
+whose values are all tensors: its keys, in order, are part of the
+signature, and it is rebuilt with the same keys), whether each optional
+argument is None, and every other argument by value: configs
 (`SiftConfig`, `MatchConfig`) and Python ints and floats (`iters`,
 `huber_px`) are static, as jit's `static_argnums` makes them.  An argument
-that cannot be hashed raises.  Like jit's cache, the cache is unbounded.
+that cannot be hashed raises, and so does a dict that holds anything but
+tensors.  Like jit's cache, the cache is unbounded.
 
 A `torch.Generator` argument (the counterpart of jit's PRNG key) is state,
 not part of the signature beyond its device: a new generator object
@@ -24,23 +27,40 @@ from s draws and leaves the caller's generator where the eager call
 leaves it.  The warm-up calls draw from the capture's generator, never
 from the caller's.
 
-The first call of a signature runs fn twice on a side stream (PyTorch's
-CUDA-graph recipe: these calls build the kernels at first use, let cuDNN
-pick its algorithms, make cuBLAS's workspaces and the per-device constants
-of `device_constant`), captures a third call under `torch.cuda.graph` into
-a private memory pool, and replays it once.  Every call copies the
-caller's tensors into the graph's static inputs on the current stream,
-replays, and returns fresh clones of the outputs, as jit returns new
-arrays: no output aliases a buffer that the next replay overwrites.  There
-is no fallback: a capture that fails (a host sync inside fn, a copy from
-pageable memory, a launch that cannot be captured) raises, naming the
-entry point and the signature.
+The first call of a signature runs fn twice on a side stream, one per
+device for every capture (PyTorch's CUDA-graph recipe: these calls build
+the kernels at first use, let cuDNN pick its algorithms, make cuBLAS's
+workspaces and the per-device constants of `device_constant`), captures a third call under `torch.cuda.graph` into
+a private memory pool (or its family's, below), and replays it once.
+Every call copies the caller's tensors into the graph's static inputs on
+the current stream, replays, and returns fresh clones of the outputs, as
+jit returns new arrays: no output aliases a buffer that the next replay
+overwrites.  There is no fallback: a capture that fails (a host sync
+inside fn, a copy from pageable memory, a launch that cannot be captured)
+raises, naming the entry point, its family if it has one, and the
+signature.
 
 During capture the hand kernels' launches are tallied against the graph
 (`_build.tally_launches`); each replay adds the tally to `Kernel.launches`,
 so the counters read after a replay what they read after an eager call.
 One lock per entry point serialises capture and replay; a replay waits
 for the previous one's output clones on whatever stream that ran.
+
+A `GraphFamily` groups entry points that share one memory pool per device
+(`torch.cuda.graph(pool=)`), so that programs run one after another, as
+-obo's octave programs are, hold together about the largest one's working
+set and not the sum.  Its members share one lock, held over capture and
+replay, and one "last replay done" event, which every replay waits on
+before it copies its inputs.  Sharing is safe by this rule: replays in a
+family never run at the same time, and each replay's outputs are cloned
+before the next one runs.  A capture may then be handed memory that an
+earlier member used for temporaries or outputs, since no replay reads
+memory it did not write first but its static inputs, which lie outside
+the pool.  A member's `Capture.pool_bytes` is the growth of reserved
+memory that its own capture caused; `GraphFamily.pool_bytes()` sums its
+members' live captures.  A family takes a new pool on a device when none
+of its members holds a capture there (after `release()`, or after its
+members' `captures` were cleared).
 """
 
 from __future__ import annotations
@@ -56,11 +76,12 @@ import torch
 
 from ..ops import _build
 
-__all__ = ["graphed", "Graphed", "Capture", "device_constant"]
+__all__ = ["graphed", "Graphed", "GraphFamily", "Capture", "device_constant"]
 
 WARMUPS = 2
 
 _CONSTANTS: dict = {}
+_WARMUP_STREAMS: dict = {}
 
 
 def device_constant(key, device, make: Callable[[], np.ndarray]) -> torch.Tensor:
@@ -77,6 +98,18 @@ def device_constant(key, device, make: Callable[[], np.ndarray]) -> torch.Tensor
     if t is None:
         t = _CONSTANTS.setdefault(k, torch.from_numpy(np.ascontiguousarray(make())).to(device))
     return t
+
+
+def _warmup_stream(device: torch.device):
+    """The side stream of every capture's warm-up calls on `device`.  One
+    stream, as `torch.cuda.graph` captures on one: what a library keeps per
+    stream (cuBLAS's workspace) is then made once, not once for each stream
+    of PyTorch's pool that a capture happens to draw, where it could take a
+    cached block of any segment and pin that segment."""
+    s = _WARMUP_STREAMS.get(device)
+    if s is None:
+        s = _WARMUP_STREAMS.setdefault(device, torch.cuda.Stream(device))
+    return s
 
 
 def _device(x) -> torch.device:
@@ -98,6 +131,8 @@ def _flatten(x, leaves: list, where: str):
         return (torch.Generator, _device(x))
     if isinstance(x, (tuple, list)):
         return (type(x), tuple(_flatten(v, leaves, where) for v in x))
+    if isinstance(x, dict) and all(isinstance(v, torch.Tensor) for v in x.values()):
+        return (type(x), tuple((k, _flatten(v, leaves, where)) for k, v in x.items()))
     try:
         hash(x)
     except TypeError:
@@ -114,28 +149,39 @@ def _rebuild(x, tensors):
     if isinstance(x, (tuple, list)):
         vals = [_rebuild(v, tensors) for v in x]
         return type(x)(*vals) if hasattr(x, "_fields") else type(x)(vals)
+    if isinstance(x, dict):
+        return type(x)((k, _rebuild(v, tensors)) for k, v in x.items())
     return x
+
+
+class _LastReplay:
+    """The event recorded after the last replay's output clones, of one
+    capture or of a whole family."""
+
+    def __init__(self):
+        self.done = None
 
 
 class Capture:
     """One captured signature: the graph, its static input and output
     tensors, the launches it holds, and what capturing it cost."""
 
-    def __init__(self, graph, inputs, out_tree, outputs, tally, seconds, pool_bytes):
+    def __init__(self, graph, device, inputs, out_tree, outputs, tally, seconds, pool_bytes,
+                 last):
         self.graph = graph
+        self.device = device
         self.inputs = inputs          # static input buffers and generators, in argument order
         self.out_tree = out_tree      # fn's output, its tensors those of `outputs`
         self.outputs = outputs
         self.tally = tally            # Kernel -> launches in one replay
         self.seconds = seconds        # the warm-up calls and the capture
         self.pool_bytes = pool_bytes  # device memory the capture reserved
-        self.done = None              # event after the last replay's clones
+        self.last = last              # the capture's own _LastReplay, or its family's
 
     def run(self, leaves):
-        dev = next(t.device for t in self.inputs if isinstance(t, torch.Tensor))
-        stream = torch.cuda.current_stream(dev)
-        if self.done is not None:
-            stream.wait_event(self.done)
+        stream = torch.cuda.current_stream(self.device)
+        if self.last.done is not None:
+            stream.wait_event(self.last.done)
         gens = []
         for dst, src in zip(self.inputs, leaves):
             if isinstance(dst, torch.Generator):
@@ -147,23 +193,58 @@ class Capture:
         for own, caller in gens:   # the caller's generator advances as after an eager call
             caller.set_state(own.get_state())
         outs = [t.clone() for t in self.outputs]
-        self.done = torch.cuda.Event()
-        self.done.record(stream)
+        self.last.done = torch.cuda.Event()
+        self.last.done.record(stream)
         _build.add_launches(self.tally)
         return _rebuild(self.out_tree, iter(outs))
+
+
+class GraphFamily:
+    """Entry points that share one graph memory pool per device, one lock
+    and one "last replay done" event (see the module's docstring)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.members: list = []
+        self.lock = threading.Lock()
+        self.last = _LastReplay()
+        self._pools: dict = {}
+
+    def pool(self, device: torch.device):
+        """The pool of the next capture on `device`: the family's, or a new
+        one where no member holds a capture."""
+        if not any(c.device == device for g in self.members for c in g.captures.values()):
+            self._pools[device] = torch.cuda.graph_pool_handle()
+        return self._pools[device]
+
+    def pool_bytes(self) -> int:
+        """The growth of reserved memory that the members' live captures
+        caused: the family's pools, summed over devices."""
+        return sum(c.pool_bytes for g in self.members for c in g.captures.values())
+
+    def release(self) -> None:
+        """Drop every member's captures; the pools' memory goes back to the
+        cache (`torch.cuda.empty_cache()` returns it to the device)."""
+        with self.lock:
+            for g in self.members:
+                g.captures.clear()
+            self._pools.clear()
 
 
 class Graphed:
     """fn, captured once per signature on CUDA inputs (see the module's
     docstring).  `captures` maps each signature to its `Capture`."""
 
-    def __init__(self, fn: Callable, name: str):
+    def __init__(self, fn: Callable, name: str, family: GraphFamily | None = None):
         functools.update_wrapper(self, fn)
         self.__name__ = self.__qualname__ = name
         self.fn = fn
+        self.family = family
         self.captures: dict = {}
         self._sig = inspect.signature(fn)
-        self._lock = threading.Lock()
+        self._lock = family.lock if family else threading.Lock()
+        if family:
+            family.members.append(self)
 
     def signature(self, *args, **kwargs):
         """(key, bound arguments, tensors and generators in argument order)
@@ -205,7 +286,7 @@ class Graphed:
             self._sig, {k: _rebuild(v, it) for k, v in bound.arguments.items()})
         call = lambda: self.fn(*args.args, **args.kwargs)
         cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
+        side = _warmup_stream(dev)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             for _ in range(WARMUPS):
@@ -218,19 +299,24 @@ class Graphed:
         for g in inputs:
             if isinstance(g, torch.Generator):
                 graph.register_generator_state(g)
+        fam = self.family
+        pool = fam.pool(dev) if fam else None
         try:
-            with _build.tally_launches() as tally, torch.cuda.graph(graph):
+            with _build.tally_launches() as tally, torch.cuda.graph(graph, pool=pool):
                 out = call()
         except RuntimeError as e:
-            raise RuntimeError(f"{self.__name__}: capture failed for the signature {key}: "
-                               f"{e}") from e
+            within = f" in the family {fam.name!r}" if fam else ""
+            raise RuntimeError(f"{self.__name__}: capture failed for the signature {key}"
+                               f"{within}: {e}") from e
         outputs: list = []
         _flatten(out, outputs, self.__name__)
         pool = torch.cuda.memory_reserved(dev) - reserved
-        return Capture(graph, inputs, out, outputs, tally, time.perf_counter() - t0, pool)
+        return Capture(graph, dev, inputs, out, outputs, tally, time.perf_counter() - t0, pool,
+                       fam.last if fam else _LastReplay())
 
 
-def graphed(fn: Callable, name: str) -> Graphed:
+def graphed(fn: Callable, name: str, family: GraphFamily | None = None) -> Graphed:
     """fn as an entry point captured once per static shape on CUDA inputs
-    and called as it is on CPU inputs; `name` names it in errors."""
-    return Graphed(fn, name)
+    and called as it is on CPU inputs; `name` names it in errors.  Members
+    of one `family` share its pool, lock and replay event."""
+    return Graphed(fn, name, family)

@@ -7,7 +7,9 @@ padded buffers with validity masks.  Wherever the reference calls
 the lowest index as they do there; this matters in `assemble_features`,
 where the orientation slots of one keypoint carry the same response.
 
-`extract_features_obo` (-obo) runs the same stages one octave at a time.
+`extract_features_obo` (-obo) runs the same stages one octave at a time,
+as three programs (`_obo_prep`, `_obo_octave` per octave, `_obo_assemble`);
+`extract_features_obo_jit` runs their captures.
 """
 
 from __future__ import annotations
@@ -17,13 +19,13 @@ from typing import NamedTuple
 import torch
 
 from ..core.config import SiftConfig
-from ..core.graphs import graphed
+from ..core.graphs import GraphFamily, graphed
 from . import detect, fused, orient, pyramid
 
 __all__ = [
     "Features", "octave_candidates", "prefilter_candidates",
     "assemble_features", "to_image_coords", "extract_features", "extract_features_jit",
-    "extract_features_obo",
+    "extract_features_obo", "extract_features_obo_jit",
 ]
 
 
@@ -160,6 +162,35 @@ def extract_features(images: torch.Tensor, cfg: SiftConfig) -> Features:
 extract_features_jit = graphed(extract_features, "extract_features_jit")
 
 
+def _obo_prep(images: torch.Tensor, cfg: SiftConfig) -> torch.Tensor:
+    """-obo's first program: input conditioning and the initial blur ->
+    octave 0's Gaussian level 0."""
+    return pyramid.octave0_base(images, cfg)
+
+
+def _obo_octave(base: torch.Tensor, cfg: SiftConfig, o: int):
+    """-obo's program of octave o: its levels and DoGs, detect, orient +
+    describe -> (the image-coordinate candidate dict, octave o+1's base).
+    Only `base` and the candidates outlive it."""
+    oc = pyramid._octave_levels(base, cfg)
+    cand = octave_candidates(oc, cfg, cfg.octave_cap(o))
+    return to_image_coords(cand, cfg, o), pyramid.downsample2x(oc.gauss[:, cfg.dog_levels])
+
+
+def _obo_assemble(parts, cfg: SiftConfig) -> Features:
+    """-obo's last program: the top-K over a tuple of octave dicts."""
+    return assemble_features(list(parts), cfg)
+
+
+def _obo_chain(images, cfg, prep, octave, assemble) -> Features:
+    base = prep(images, cfg)
+    parts = []
+    for o in range(cfg.octaves):
+        part, base = octave(base, cfg, o)
+        parts.append(part)
+    return assemble(tuple(parts), cfg)
+
+
 def extract_features_obo(images: torch.Tensor, cfg: SiftConfig) -> Features:
     """Octave-by-octave extraction (`GlobalUtil::_ProcessOBO`, -obo): blur
     chain, detect, orient + describe and the image-coordinate candidates of
@@ -167,12 +198,20 @@ def extract_features_obo(images: torch.Tensor, cfg: SiftConfig) -> Features:
     top-K over all octaves.  Only one octave's pyramid and gradients are
     alive at a time.  There is no cross-octave prefilter, which only saves
     work, so the outputs are identical to `extract_features`'."""
-    base = pyramid.octave0_base(images, cfg)
-    parts = []
-    for o in range(cfg.octaves):
-        oc = pyramid._octave_levels(base, cfg)
-        cand = octave_candidates(oc, cfg, cfg.octave_cap(o))
-        parts.append(to_image_coords(cand, cfg, o))
-        base = pyramid.downsample2x(oc.gauss[:, cfg.dog_levels])
-        del oc
-    return assemble_features(parts, cfg)
+    return _obo_chain(images, cfg, _obo_prep, _obo_octave, _obo_assemble)
+
+
+# the reference's -obo programs, captured on CUDA inputs into one shared
+# pool (`core/graphs.py`), so that -obo keeps its cap of about one octave's
+# working set
+OBO_FAMILY = GraphFamily("obo")
+_obo_prep_jit = graphed(_obo_prep, "_obo_prep_jit", OBO_FAMILY)
+_obo_octave_jit = graphed(_obo_octave, "_obo_octave_jit", OBO_FAMILY)
+_obo_assemble_jit = graphed(_obo_assemble, "_obo_assemble_jit", OBO_FAMILY)
+
+
+def extract_features_obo_jit(images: torch.Tensor, cfg: SiftConfig) -> Features:
+    """`extract_features_obo` through the captured programs (the
+    reference's `extract_features_obo`, which always runs compiled): on CPU
+    inputs the eager functions."""
+    return _obo_chain(images, cfg, _obo_prep_jit, _obo_octave_jit, _obo_assemble_jit)

@@ -105,6 +105,9 @@ def same_bits(a, b) -> bool:
         return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
     if isinstance(a, (tuple, list)):
         return type(a) is type(b) and len(a) == len(b) and all(map(same_bits, a, b))
+    if isinstance(a, dict):
+        return type(a) is type(b) and list(a) == list(b) and all(map(same_bits, a.values(),
+                                                                      b.values()))
     return a == b
 
 
