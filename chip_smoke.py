@@ -228,7 +228,7 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      after the replay it must hold the eager call's end state), replay
      1's output unchanged after the later replays, the kernels' launch
      counters after a replay equal to those after an eager call, and
-     eager against replay ms per call (CUDA events, median and p90 of 50)
+     eager against replay ms per call (CUDA events, median and p90 of 20)
      beside the eager call's device time (torch.profiler), logged as a
      `{"graphs": [...]}` line with the card's line; before them the main
      path's synchronising calls per iteration, after them a capture with
@@ -2882,14 +2882,15 @@ def resident_window(cams, points, cam_idx, pt_idx, uv, intr, n_slots=300):
                 iters=3, n_cg=30)
 
 
-def resident_solve(window, edits, *, group, device):
-    """`ResidentBA.solve` on `window` (`resident_window`), then the host
-    edits `edits` (slot -> xyz) and a second solve.  Returns (cams, cost,
-    map_X after the first solve, the second call's dirty-slot upload count,
-    cams and map_X after the second).  A rank target of `comm.spawn`."""
+def resident_solve(window, edits, jit=False, *, group, device):
+    """`ResidentBA.solve` (`ResidentBAJit.solve` if `jit`) on `window`
+    (`resident_window`), then the host edits `edits` (slot -> xyz) and a
+    second solve.  Returns (cams, cost, map_X after the first solve, the
+    second call's dirty-slot upload count, cams and map_X after the
+    second).  A rank target of `comm.spawn`."""
     from siftgpu_tpu_torch.parallel import resident_ba
 
-    rb = resident_ba.ResidentBA(group, device)
+    rb = (resident_ba.ResidentBAJit if jit else resident_ba.ResidentBA)(group, device)
     rb.set_intrinsics(window["intr"])
     map_X = window["map_X"].copy()
     args = [window[k] for k in ("cams", "obs_c", "obs_p", "obs_uv", "fixed")]
@@ -2902,6 +2903,170 @@ def resident_solve(window, edits, *, group, device):
     rb._upload_dirty = lambda m: count.append(upload(m)) or count[-1]
     cams2, _ = rb.solve(*args, map_X, window["iters"], window["n_cg"])
     return cams, cost, first, count[0], cams2, map_X
+
+
+RESIDENT_PROGRAMS = {"scatter": "_scatter", "solver": "_solve", "gather": "_gather"}
+RANK_TIMED_CALLS = 20       # timed calls of a rank program, eager and replayed
+
+
+@contextlib.contextmanager
+def recorded_programs(calls: dict):
+    """Record the arguments of every call of `ResidentBA`'s eager programs
+    (`RESIDENT_PROGRAMS`) into calls[name], a list each;
+    `ResidentBAJit`'s captured programs are not recorded."""
+    from siftgpu_tpu_torch.parallel import resident_ba
+
+    cls = resident_ba.ResidentBA
+    saved = {name: cls.__dict__[name] for name in RESIDENT_PROGRAMS}
+    for name, fn in saved.items():
+        def rec(*args, _fn=fn.__func__, _name=name):
+            calls.setdefault(_name, []).append(args)
+            return _fn(*args)
+
+        setattr(cls, name, staticmethod(rec))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(cls, name, fn)
+
+
+def rank_programs(job, *, group, device):
+    """Phase 4f's rank programs in one rank (on the card the NCCL rank, world
+    size 1): `resident_solve` on `job["window"]` through `ResidentBA`, then
+    twice through `ResidentBAJit` (captures, then replays), each run's
+    results, hand-kernel launches and collectives (`graphs.COLLECTIVES`);
+    each program (`_scatter_jit`, `_solve_jit`, `_gather_jit`) against its
+    eager function on every input the eager run gave it, with launches and
+    collectives of one call, and on the card its capture's collective
+    tally, capture s, pool MiB and median ms eager and replayed
+    (`RANK_TIMED_CALLS`); `extract_features_dp_jit` against
+    `extract_features_dp` on `job["frames4"]`.  A rank target of
+    `comm.spawn`; `check_rank_programs` holds the results."""
+    import torch
+
+    from siftgpu_tpu_torch.core import graphs
+    from siftgpu_tpu_torch.ops import _build
+    from siftgpu_tpu_torch.parallel import dp
+    from siftgpu_tpu_torch.parallel import resident_ba as rba
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def counted(fn):
+        for kern in _build.KERNELS.values():
+            kern.launches = 0
+        graphs.COLLECTIVES.update(all_reduce=0, all_gather=0)
+        out = fn()
+        sync()
+        return (out, {n: k.launches for n, k in _build.KERNELS.items() if k.launches},
+                {n: c for n, c in graphs.COLLECTIVES.items() if c})
+
+    def median_ms(fn):
+        import bench_torch
+
+        return bench_torch.event_stats(fn, RANK_TIMED_CALLS)["median_ms"] if cuda else None
+
+    def solve(jit):
+        return resident_solve(job["window"], RESIDENT_EDITS, jit, group=group, device=device)
+
+    calls: dict = {}
+    with recorded_programs(calls):
+        eager = counted(lambda: solve(False))
+    out = {"captured": cuda, "solve": {"eager": eager, "captured": counted(lambda: solve(True)),
+                                       "replayed": counted(lambda: solve(True))},
+           "programs": []}
+    for name, fn_name in RESIDENT_PROGRAMS.items():
+        fn, jit = getattr(rba, fn_name), getattr(rba, fn_name + "_jit")
+        args = calls[name]
+        same = all(same_tree(jit(*a), fn(*a)) for a in args)
+        _, n_e, c_e = counted(lambda: fn(*args[0]))
+        _, n_j, c_j = counted(lambda: jit(*args[0]))
+        cap = jit.captures.get(jit.signature(*args[0])[0])
+        out["programs"].append(dict(
+            name=jit.__name__, inputs=len(args), same=same, launches=(n_e, n_j),
+            collectives=(c_e, c_j), tally=None if cap is None else dict(cap.collectives),
+            capture_s=None if cap is None else cap.seconds,
+            pool_mib=None if cap is None else cap.pool_bytes / MIB,
+            eager_ms=median_ms(lambda: fn(*args[0])), replay_ms=median_ms(lambda: jit(*args[0]))))
+    frames = torch.from_numpy(job["frames4"]).to(device)
+    eager_dp = lambda: dp.extract_features_dp(frames, job["cfg4"], group, device)
+    jit_dp = lambda: dp.extract_features_dp_jit(frames, job["cfg4"], group, device)
+    f_e, n_e, _ = counted(eager_dp)
+    f_c, _, _ = counted(jit_dp)
+    f_j, n_j, c_j = counted(jit_dp)
+    cap = dp.extract_features_jit.captures.get(
+        dp.extract_features_jit.signature(frames, job["cfg4"])[0])
+    out["dp"] = dict(frames=len(frames), same=same_tree(f_e, f_c) and same_tree(f_e, f_j),
+                     launches=(n_e, n_j), collectives=c_j,
+                     capture_s=None if cap is None else cap.seconds,
+                     pool_mib=None if cap is None else cap.pool_bytes / MIB,
+                     eager_ms=median_ms(eager_dp), replay_ms=median_ms(jit_dp))
+    return out
+
+
+def check_rank_programs(r, label: str, card: str) -> None:
+    """Log and hold `rank_programs`' results: the captured solves bit for
+    bit to the eager one with the edited slots uploaded, launches and
+    collectives equal, more than 0 collectives; each program bit for bit on
+    every input, launches and collectives of one call equal, and where it
+    was captured its tally equal to the eager call's collectives (> 0 for
+    `_solve_jit` and `_gather_jit`); `extract_features_dp_jit` bit for bit
+    with equal launches and no collective."""
+    (e_res, e_n, e_c), (c_res, _, _), (r_res, r_n, r_c) = (
+        r["solve"][k] for k in ("eager", "captured", "replayed"))
+    same = lambda a, b: all(np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(a, b))
+    ok = same(e_res, c_res) and same(e_res, r_res)
+    how = "captured, then replayed" if r["captured"] else "eager on this device"
+    log(f"  {label}: resident_solve through ResidentBAJit ({how}) bit-identical to ResidentBA: "
+        f"{ok}; second solve uploads {e_res[3]} / {r_res[3]} slots; launches {e_n} / {r_n}; "
+        f"collectives eager {e_c}, replayed {r_c} ({card})")
+    if not (ok and e_res[3] == r_res[3] == len(RESIDENT_EDITS) and e_n == r_n and e_c == r_c
+            and sum(e_c.values()) > 0):
+        raise AssertionError(f"{label}: ResidentBAJit against ResidentBA: bits {ok}, uploads "
+                             f"{e_res[3]} / {r_res[3]}, launches {e_n} / {r_n}, collectives "
+                             f"{e_c} / {r_c}")
+    for p in r["programs"]:
+        (n_e, n_j), (c_e, c_j) = p["launches"], p["collectives"]
+        timing = ("" if p["tally"] is None else
+                  f"; tally {p['tally']}; captured in {p['capture_s']:.3f} s, pool "
+                  f"{p['pool_mib']:.1f} MiB; ms per call (median of {RANK_TIMED_CALLS}) eager "
+                  f"{p['eager_ms']:.4f} -> replay {p['replay_ms']:.4f}")
+        log(f"    {p['name']} ({p['inputs']} inputs): bit-identical {p['same']}; launches "
+            f"{n_e} / {n_j}; collectives eager {c_e}, through the program {c_j}{timing}")
+        tally_ok = p["tally"] is None or (p["tally"] == c_e and (
+            p["name"] == "_scatter_jit" or sum(c_e.values()) > 0))
+        if not (p["same"] and n_e == n_j and c_e == c_j and tally_ok
+                and (p["tally"] is not None or not r["captured"])):
+            raise AssertionError(f"{label}: {p['name']}: {p}")
+    d = r["dp"]
+    timing = ("" if d["eager_ms"] is None else
+              f"; captured in {d['capture_s']:.3f} s, pool {d['pool_mib']:.1f} MiB; ms per call "
+              f"(median of {RANK_TIMED_CALLS}) eager {d['eager_ms']:.4f} -> replay "
+              f"{d['replay_ms']:.4f}")
+    log(f"    extract_features_dp_jit ({d['frames']} frames): bit-identical to "
+        f"extract_features_dp {d['same']}; launches {d['launches'][0]} / {d['launches'][1]}; "
+        f"collectives {d['collectives']}{timing}")
+    if not (d["same"] and d["launches"][0] == d["launches"][1] and not d["collectives"]
+            and (d["capture_s"] is not None or not r["captured"])):
+        raise AssertionError(f"{label}: extract_features_dp_jit: {d}")
+
+
+def gloo_refusal(window, group, device):
+    """`ResidentBAJit.solve` on a gloo group with CUDA tensors, then one
+    all-reduce of ones: (the ValueError's text or None, the sum).  The
+    refusal comes before any collective, so the all-reduce completes on
+    every rank."""
+    import torch
+
+    from siftgpu_tpu_torch.parallel import comm
+
+    try:
+        resident_solve(window, {}, True, group=group, device=device)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return refused, float(comm.all_reduce_sum(torch.ones(1, device=device), group).item())
 
 
 def circle_graphs(n=12, seed=11):
@@ -3045,6 +3210,8 @@ def dist_rank(job, *, group, device):
     out["dp"] = [a.cpu().numpy() for a in f]
     out["resident"] = resident_solve(job["window"], RESIDENT_EDITS, group=group,
                                      device=device)
+    if device.type == "cuda":
+        out["refusal"] = gloo_refusal(job["window"], group, device)
 
     # ---- SLAM ----
     h, w, k = job["hwk"]
@@ -3095,7 +3262,8 @@ def dist_rank(job, *, group, device):
 def nccl_rank(job, *, group, device):
     """SLAM run A again, twice, in one rank of an NCCL group: the first run
     warms the fresh process up (its first extraction, solver and library
-    loads), the second is timed."""
+    loads), the second is timed; then the rank programs captured on NCCL
+    (`rank_programs`)."""
     import torch
     import torch.distributed as dist
 
@@ -3118,6 +3286,7 @@ def nccl_rank(job, *, group, device):
                                             slam_config(slam, w), group, device, timings=timings)
         sync()
         out[label] = _slam_summary(res, time.perf_counter() - t0, timings, len(frames))
+    out["programs"] = rank_programs(job, group=group, device=device)
     return dict(backend=dist.get_backend(group), **out)
 
 
@@ -3222,6 +3391,14 @@ def dist_phase(dev, sync, frames4, feats4, k, slam_ref, h=H, w=W):
     if not same:
         raise AssertionError("extract_features_dp differs from phase 4's extraction")
     resident_phase(ranks, window, dev)
+    if cuda:
+        for r in ranks:
+            refused, total = r["refusal"]
+            log(f"  rank {r['rank']} (gloo): ResidentBAJit.solve refused before any collective: "
+                f"{refused!r}; the next all_reduce completed, summing {total:g}")
+            if not (refused and "_solve_jit" in refused and "'gloo'" in refused
+                    and total == DIST_RANKS):
+                raise AssertionError(f"rank {r['rank']}: refusal {refused!r}, all_reduce {total}")
 
     # ---- SLAM runs ----
     _, gt, _ = slam_loop_scene(fixtures, h, w)
@@ -3287,7 +3464,8 @@ def dist_phase(dev, sync, frames4, feats4, k, slam_ref, h=H, w=W):
     if cuda:
         torch.cuda.empty_cache()
         t0, t0_wall = time.perf_counter(), time.time()
-        (nc,) = comm.spawn(nccl_rank, 1, "nccl", "cuda", dict(hwk=(h, w, k)),
+        (nc,) = comm.spawn(nccl_rank, 1, "nccl", "cuda", dict(hwk=(h, w, k), window=window,
+                                                              frames4=frames4, cfg4=cfg4),
                            timeout=DIST_TIMEOUT)
         log(f"  {nc['backend']} rank (world size 1): {time.perf_counter() - t0:.1f} s of wall "
             f"time, {nc['t_joined'] - t0_wall:.2f} s from spawn to the group joined")
@@ -3299,8 +3477,13 @@ def dist_phase(dev, sync, frames4, feats4, k, slam_ref, h=H, w=W):
             if x["keyframes"] != A["keyframes"] or not d_n <= 1e-4:
                 raise AssertionError(f"NCCL {label} run: keyframes {x['keyframes']}, "
                                      f"trajectory {d_n}")
+        check_rank_programs(nc["programs"], f"{nc['backend']} rank", card_line())
     else:
-        log("  NCCL rank: not run on the CPU")
+        log("  NCCL rank: not run on the CPU; the rank programs in one gloo rank instead")
+        (progs,) = comm.spawn(rank_programs, 1, "gloo", "cpu", dict(window=window,
+                                                                   frames4=frames4, cfg4=cfg4),
+                              timeout=DIST_TIMEOUT)
+        check_rank_programs(progs, "gloo rank (cpu)", "")
     return r0["launches"]
 
 
@@ -3673,7 +3856,7 @@ def bench_phase(dev):
 
 # ---------------- phase 5c: the captured entry points (core/graphs.py) ----------------
 
-GRAPH_TIMED_CALLS = 50
+GRAPH_TIMED_CALLS = 20             # timed calls a case, eager and replayed
 OBO_CAP = (2160, 3840, 8192, 9)     # bench.py:171-172: the 4k frame's size, K and texture seed
 OBO_CAP_SHARE = 0.95                # tests/test_obo.py:65: -obo's peak under the fused program's
 STAGE_RESERVED_MIB = 32             # -v 2: reserved memory a call may leave behind
@@ -4248,7 +4431,8 @@ def obo_memory_cap(dev, sync, card) -> dict:
     private pools; each pool as the growth of reserved memory its captures
     caused (`Capture.pool_bytes`) and as its segments in the allocator's
     snapshot.  Raises unless the shared pool is below `OBO_CAP_SHARE` x the
-    fused pool.  Releases every capture it made."""
+    fused pool and the eager -obo peak below `OBO_CAP_SHARE` x the eager
+    fused peak.  Releases every capture it made."""
     import torch
 
     from siftgpu_tpu_torch import SiftConfig
@@ -4297,9 +4481,11 @@ def obo_memory_cap(dev, sync, card) -> dict:
                obo_family_pool_segments_mib=segs(family),
                obo_private_pools_segments_mib=segs(private))
     share = out["obo_family_pool_mib"] / out["fused_pool_mib"]
+    eager_share = obo_peak / fused_peak
     log(f"  -obo memory cap, 1 x {h}x{w}, K = {k} ({card}), MiB as reserved growth (segments in "
         f"the allocator's snapshot): eager peak (max_memory_allocated growth) extract_features "
-        f"{fused_peak:.1f}, extract_features_obo {obo_peak:.1f}; extract_features_jit's pool "
+        f"{fused_peak:.1f}, extract_features_obo {obo_peak:.1f} ({eager_share:.3f} of the "
+        f"fused); extract_features_jit's pool "
         f"{out['fused_pool_mib']:.1f} ({out['fused_pool_segments_mib']:.1f}); the -obo family's "
         f"shared pool over its {len(family)} programs {out['obo_family_pool_mib']:.1f} "
         f"({out['obo_family_pool_segments_mib']:.1f}), {share:.3f} of the fused pool; the same "
@@ -4311,6 +4497,9 @@ def obo_memory_cap(dev, sync, card) -> dict:
     torch.cuda.empty_cache()
     if not share < OBO_CAP_SHARE:
         raise AssertionError(f"-obo: the family's pool is {share:.3f} of extract_features_jit's, "
+                             f"not below {OBO_CAP_SHARE}")
+    if not eager_share < OBO_CAP_SHARE:
+        raise AssertionError(f"-obo: the eager peak is {eager_share:.3f} of extract_features', "
                              f"not below {OBO_CAP_SHARE}")
     return out
 

@@ -61,10 +61,29 @@ memory that its own capture caused; `GraphFamily.pool_bytes()` sums its
 members' live captures.  A family takes a new pool on a device when none
 of its members holds a capture there (after `release()`, or after its
 members' `captures` were cleared).
+
+A `torch.distributed` process group among the arguments is static and
+keyed by identity: one capture per group object.  Only NCCL's collectives
+can be captured, so on CUDA inputs a group of any other backend raises
+`ValueError` (`check_backends`) before the warm-up calls: no collective
+has run, and no peer is left waiting in one.  CPU inputs call fn as ever,
+on any backend.  The warm-up calls run fn's collectives on the warm-up
+stream, which creates the group's NCCL communicator before the capture,
+as NCCL needs.  Every rank of the group must capture the same signatures
+in the same order, since each capture runs the collectives of its
+warm-ups: a caller keys its programs by sizes that every rank computes
+alike from global counts (`parallel/resident_ba.py`).  The collectives
+that reach `torch.distributed` through `optim.ba.all_reduce_sum` and
+`parallel.comm.all_gather_rows` are counted (`count_collective`) as
+launches are: into `COLLECTIVES`, or during a capture into its
+`Capture.collectives`, which each replay adds to `COLLECTIVES`.  That
+tally is the evidence that a graph holds its collectives, since NCCL may
+launch no kernel for a sum over one rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
 import threading
@@ -73,15 +92,67 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops import _build
 
-__all__ = ["graphed", "Graphed", "GraphFamily", "Capture", "device_constant"]
+__all__ = ["graphed", "Graphed", "GraphFamily", "Capture", "device_constant", "check_backends",
+           "count_collective", "COLLECTIVES"]
 
 WARMUPS = 2
 
 _CONSTANTS: dict = {}
 _WARMUP_STREAMS: dict = {}
+
+# calls of each collective that reached torch.distributed (`count_collective`)
+COLLECTIVES: dict = {"all_reduce": 0, "all_gather": 0}
+_TALLY = threading.local()
+
+
+def count_collective(name: str) -> None:
+    """Count one call of the collective `name` that reaches
+    torch.distributed: into the tally of the capture under way on this
+    thread, else into `COLLECTIVES`."""
+    tally = getattr(_TALLY, "collectives", None)
+    counts = COLLECTIVES if tally is None else tally
+    counts[name] = counts.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def _tally_collectives():
+    """Inside the block, this thread's collectives are counted into the
+    dict it yields, not into `COLLECTIVES` (as `_build.tally_launches`)."""
+    tally: dict = {}
+    prev = getattr(_TALLY, "collectives", None)
+    _TALLY.collectives = tally
+    try:
+        yield tally
+    finally:
+        _TALLY.collectives = prev
+
+
+def _groups(x):
+    """The process groups in an argument, walked as `_flatten` walks it."""
+    if isinstance(x, getattr(dist, "ProcessGroup", ())):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _groups(v)
+
+
+def check_backends(name: str, arguments, device) -> None:
+    """Raise ValueError, naming the entry point `name` and the backend, if
+    `device` is a CUDA device and a process group among `arguments` (a
+    call's argument values) is not NCCL's: only NCCL's collectives can be
+    captured.  Called before a capture's warm-up calls."""
+    if torch.device(device).type != "cuda":
+        return
+    for x in arguments:
+        for g in _groups(x):
+            backend = dist.get_backend(g)
+            if backend != "nccl":
+                raise ValueError(f"{name}: cannot capture the collectives of a {backend!r} "
+                                 f"process group on {device}: only NCCL's can be captured")
 
 
 def device_constant(key, device, make: Callable[[], np.ndarray]) -> torch.Tensor:
@@ -166,14 +237,15 @@ class Capture:
     """One captured signature: the graph, its static input and output
     tensors, the launches it holds, and what capturing it cost."""
 
-    def __init__(self, graph, device, inputs, out_tree, outputs, tally, seconds, pool_bytes,
-                 last):
+    def __init__(self, graph, device, inputs, out_tree, outputs, tally, collectives, seconds,
+                 pool_bytes, last):
         self.graph = graph
         self.device = device
         self.inputs = inputs          # static input buffers and generators, in argument order
         self.out_tree = out_tree      # fn's output, its tensors those of `outputs`
         self.outputs = outputs
         self.tally = tally            # Kernel -> launches in one replay
+        self.collectives = collectives  # collective name -> calls in one replay
         self.seconds = seconds        # the warm-up calls and the capture
         self.pool_bytes = pool_bytes  # device memory the capture reserved
         self.last = last              # the capture's own _LastReplay, or its family's
@@ -196,6 +268,8 @@ class Capture:
         self.last.done = torch.cuda.Event()
         self.last.done.record(stream)
         _build.add_launches(self.tally)
+        for name, n in self.collectives.items():
+            COLLECTIVES[name] = COLLECTIVES.get(name, 0) + n
         return _rebuild(self.out_tree, iter(outs))
 
 
@@ -272,6 +346,7 @@ class Graphed:
 
     def _capture(self, key, bound, leaves) -> Capture:
         dev = _device(leaves[0])
+        check_backends(self.__name__, bound.arguments.values(), dev)
         t0 = time.perf_counter()
         inputs = []
         for t in leaves:
@@ -302,7 +377,8 @@ class Graphed:
         fam = self.family
         pool = fam.pool(dev) if fam else None
         try:
-            with _build.tally_launches() as tally, torch.cuda.graph(graph, pool=pool):
+            with _build.tally_launches() as tally, _tally_collectives() as collectives, \
+                    torch.cuda.graph(graph, pool=pool):
                 out = call()
         except RuntimeError as e:
             within = f" in the family {fam.name!r}" if fam else ""
@@ -311,8 +387,8 @@ class Graphed:
         outputs: list = []
         _flatten(out, outputs, self.__name__)
         pool = torch.cuda.memory_reserved(dev) - reserved
-        return Capture(graph, dev, inputs, out, outputs, tally, time.perf_counter() - t0, pool,
-                       fam.last if fam else _LastReplay())
+        return Capture(graph, dev, inputs, out, outputs, tally, collectives,
+                       time.perf_counter() - t0, pool, fam.last if fam else _LastReplay())
 
 
 def graphed(fn: Callable, name: str, family: GraphFamily | None = None) -> Graphed:

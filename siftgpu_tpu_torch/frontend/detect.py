@@ -135,7 +135,12 @@ def detect_octave(oc: Octave, cfg: SiftConfig, cap: int, owned_rows=None) -> Oct
 def detect_pyramid(pyr, cfg: SiftConfig, caps=None, owned_rows=None):
     """Detection over all octaves with one record gather across octaves;
     `owned_rows`: each octave's (lo, hi) or None (default: None for all).
-    Returns a list of per-octave `OctaveKeypoints`."""
+    Returns a list of per-octave `OctaveKeypoints`.
+
+    An octave's dense records are dropped as soon as they are flattened,
+    and one octave's flat records (-obo's octave programs) are gathered
+    from without another copy: at octave 0 each copy is about a third of
+    the working set."""
     caps = caps or [cfg.octave_cap(o) for o in range(len(pyr))]
     owned_rows = owned_rows or [None] * len(pyr)
     B = pyr[0].dog.shape[0]
@@ -147,12 +152,17 @@ def detect_pyramid(pyr, cfg: SiftConfig, caps=None, owned_rows=None):
         bscore, recs, (Hs, Ws), (nb1, Hs2) = _octave_scores(oc.dog, cfg, owned)
         top, bidx = _run_topk(bscore, cap)
         win = _decode_topk(top, bidx, nb1, Hs2, Ws)
+        del bscore, top, bidx   # `top` is a view of the whole sorted row
         wins.append(win)
         ridxs.append(record_indices(win, S, Hs, Ws).to(torch.int64) + off)
         flats.append(torch.cat([r.reshape(B, -1) for r in recs], dim=1))
+        del recs
         off += N_REC * S * Hs * Ws
         dims.append((H, W))
-    rall = torch.gather(torch.cat(flats, dim=1), 1, torch.cat(ridxs, dim=1))
+    flat = flats[0] if len(flats) == 1 else torch.cat(flats, dim=1)
+    del flats
+    rall = torch.gather(flat, 1, torch.cat(ridxs, dim=1))
+    del flat
     outs, col = [], 0
     for (H, W), cap, win in zip(dims, caps, wins):
         rec = rall[:, col : col + N_REC * cap].reshape(B, N_REC, cap)

@@ -33,7 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core.graphs import graphed
+from ..core.graphs import count_collective, graphed
 from ..core.precision import full_f32
 from ..geometry.pose import _so3_left_jacobian, exp_so3, hat
 
@@ -46,10 +46,12 @@ __all__ = [
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     """x summed over the ranks of `group` (a `torch.distributed` process
     group, each rank holding its own partial sums) into a new tensor; x
-    itself when `group` is None."""
+    itself when `group` is None.  Each call is counted
+    (`core.graphs.count_collective`)."""
     if group is None:
         return x
     out = x.clone()
+    count_collective("all_reduce")
     torch.distributed.all_reduce(out, group=group)
     return out
 

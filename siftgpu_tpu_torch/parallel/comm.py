@@ -35,6 +35,7 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from ..core.graphs import count_collective
 from ..optim.ba import all_reduce_sum
 
 __all__ = ["rank", "world_size", "resolve", "device_of", "all_reduce_sum", "all_gather_rows",
@@ -73,7 +74,8 @@ def device_of(rank_: int, device="cuda") -> torch.device:
 def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's block [b, ...] (the same shape on every rank)
     concatenated in rank order along dim 0 -> [n * b, ...], on every rank.
-    A bool block travels as uint8."""
+    A bool block travels as uint8.  Each call over a group is counted
+    (`core.graphs.count_collective`)."""
     group = resolve(group)
     if group is None:
         return x
@@ -81,6 +83,7 @@ def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     src = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
     out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype,
                       device=src.device)
+    count_collective("all_gather")
     dist.all_gather(list(out.chunk(n)), src, group=group)
     return out.bool() if x.dtype == torch.bool else out
 

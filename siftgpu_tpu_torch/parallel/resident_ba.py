@@ -18,6 +18,22 @@ Shapes are bucketed to powers of two (the dirty upload, the observations,
 the gather) so that the device work sees few distinct shapes.
 `pipeline.slam.run_slam` drives this through the `ba_fn.resident`
 protocol (see `ResidentBA.solve`).
+
+The device work is three pure functions, each the counterpart of one of
+the reference's compiled programs: `_scatter` (its `scat`, keyed
+("scatter", cap)), `_solve` (its `shard_map` of `run_ba_impl`, keyed
+("solve", Mw, Ns, iters, n_cg)) and `_gather` (its `gath`, keyed
+("gather", capg)).  `_scatter_jit`, `_solve_jit` and `_gather_jit` are
+their captures (`core/graphs.py`, on NCCL only); `ResidentBAJit` calls
+them, `ResidentBA` the eager functions.  Every rank captures the same
+signatures in the same order, as NCCL needs: the bucketed sizes (cap, Ns,
+capg) come from counts every rank computes alike (the mirror diff, the
+observations of every rank, the window's free points), and whether a
+scatter or gather runs at all from the same counts.  The host work stays
+outside the programs, as in the reference: the mirror diff, the
+bucketing, the pinned uploads and the one pull.  The reference donates
+the block to its programs; here each returns a new block, a copy of Ps x
+3 floats a call.
 """
 
 from __future__ import annotations
@@ -27,11 +43,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.graphs import graphed
 from ..optim import ba
 from ..pipeline.slam import _pull, _upload
 from . import comm
 
-__all__ = ["ResidentBA"]
+__all__ = ["ResidentBA", "ResidentBAJit"]
 
 
 def _pow2(n: int, floor: int = 256) -> int:
@@ -41,11 +58,45 @@ def _pow2(n: int, floor: int = 256) -> int:
     return v
 
 
+def _scatter(pts: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """The block pts [Ps + 1, 3] with rows idx set to vals, a new tensor."""
+    return pts.index_copy(0, idx, vals)
+
+
+def _solve(cams, pts, intr, cam_idx, pt_idx, uv, w, pt_fixed, iters: int, n_cg: int, group):
+    """`ba.run_ba` of this rank's block (its points pts[:Ps], their
+    observations, every camera; the camera sums all-reduced over `group`)
+    -> (cameras, the new block [Ps + 1, 3] with the sink row kept, cost)."""
+    Ps = pts.shape[0] - 1
+    prob = ba.BAProblem(cams=cams, points=pts[:Ps], intrinsics=intr, cam_idx=cam_idx,
+                        pt_idx=pt_idx, uv=uv, w=w, pt_fixed=pt_fixed)
+    st = ba.run_ba(prob, iters=iters, n_cg=n_cg, fix_first_cam=True, group=group)
+    return st.cams, torch.cat([st.points, pts[Ps:]]), st.cost
+
+
+def _gather(pts: torch.Tensor, local: torch.Tensor, owner: torch.Tensor, group) -> torch.Tensor:
+    """Rows of every rank's block, each from its owner: rank r gives its
+    rows `local` (the sink row where it does not own the slot), every rank
+    gathers all ranks' and takes slot i from rank owner[i] -> [capg, 3]."""
+    n = comm.world_size(group)
+    rows = comm.all_gather_rows(pts[local], group)
+    return rows.view(n, local.shape[0], 3)[owner, torch.arange(local.shape[0],
+                                                                device=pts.device)]
+
+
+# the reference's three programs, captured on CUDA inputs (`core/graphs.py`)
+_scatter_jit = graphed(_scatter, "_scatter_jit")
+_solve_jit = graphed(_solve, "_solve_jit")
+_gather_jit = graphed(_gather, "_gather_jit")
+
+
 class ResidentBA:
     """Rank-resident map-point store + windowed distributed BA, a
-    `run_slam(ba_fn=...)` solver of the `resident` protocol."""
+    `run_slam(ba_fn=...)` solver of the `resident` protocol; its device
+    work runs eagerly."""
 
     resident = True
+    scatter, solver, gather = staticmethod(_scatter), staticmethod(_solve), staticmethod(_gather)
 
     def __init__(self, group=None, device="cuda"):
         self.group = comm.resolve(group)
@@ -84,11 +135,11 @@ class ResidentBA:
             return 0
         cap = _pow2(len(diff))
         idx = np.full(cap, self.Ps, np.int64)       # the sink row
-        vals = np.zeros((cap, 3), np.float32)
+        vals = np.zeros((cap, 3), np.float32)       # 0 into the sink: no index gets two values
         own = diff // self.Ps == self.rank
         idx[: len(diff)][own] = diff[own] - self.rank * self.Ps
-        vals[: len(diff)] = map_X[diff]
-        self.pts.index_copy_(0, self._t(idx, torch.int64), self._t(vals))
+        vals[: len(diff)][own] = map_X[diff[own]]
+        self.pts = self.scatter(self.pts, self._t(idx, torch.int64), self._t(vals))
         self.mirror[diff] = map_X[diff]
         return len(diff)
 
@@ -124,33 +175,39 @@ class ResidentBA:
         fx[:M] = pt_fixed_host
         fx_s = fx[self.rank * self.Ps:(self.rank + 1) * self.Ps]
 
-        prob = ba.BAProblem(
-            cams=self._t(np.asarray(cams, np.float32)), points=self.pts[: self.Ps],
-            intrinsics=self._intr, cam_idx=self._t(cam_s, torch.int32),
-            pt_idx=self._t(pt_s, torch.int32), uv=self._t(uv_s), w=self._t(w_s),
-            pt_fixed=self._t(fx_s, torch.bool))
-        st = ba.run_ba(prob, iters=iters, n_cg=n_cg, fix_first_cam=True, group=self.group)
-        self.pts[: self.Ps] = st.points
+        new_cams, self.pts, cost = self.solver(
+            self._t(np.asarray(cams, np.float32)), self.pts, self._intr,
+            self._t(cam_s, torch.int32), self._t(pt_s, torch.int32), self._t(uv_s),
+            self._t(w_s), self._t(fx_s, torch.bool), iters, n_cg, self.group)
 
         # gather back ONLY the window's free points: each rank gives its
         # rows of the slots it owns (the sink row for the others), and
         # every rank takes each slot from its owner's rows
         touched = np.unique(obs_p[~pt_fixed_host[obs_p]])
         if not len(touched):
-            new_cams, cost = _pull(st.cams, st.cost)
+            new_cams, cost = _pull(new_cams, cost)
             return np.array(new_cams), float(cost)
         capg = _pow2(len(touched))
         gidx = np.full(capg, touched[0], np.int64)
         gidx[: len(touched)] = touched
         g_owner = gidx // self.Ps
         local = np.where(g_owner == self.rank, gidx - self.rank * self.Ps, self.Ps)
-        rows = comm.all_gather_rows(self.pts[self._t(local, torch.int64)], self.group)
-        vals = rows.view(self.n, capg, 3)[self._t(g_owner, torch.int64),
-                                          torch.arange(capg, device=self.device)]
-        new_cams, cost, vals = _pull(st.cams, st.cost, vals)
+        vals = self.gather(self.pts, self._t(local, torch.int64), self._t(g_owner, torch.int64),
+                           self.group)
+        new_cams, cost, vals = _pull(new_cams, cost, vals)
         map_X[touched] = vals[: len(touched)]
         self.mirror[touched] = vals[: len(touched)]
         return np.array(new_cams), float(cost)
 
     def set_intrinsics(self, intr) -> None:
         self._intr = self._t(np.asarray(intr, np.float32))
+
+
+class ResidentBAJit(ResidentBA):
+    """`ResidentBA` on the captured programs (`_scatter_jit`, `_solve_jit`,
+    `_gather_jit`): the counterpart of the reference's `ResidentBA`, whose
+    programs are always compiled.  On the card its group must be NCCL's
+    (a gloo group raises before any collective runs); on the CPU it runs
+    the eager functions."""
+
+    scatter, solver, gather = _scatter_jit, _solve_jit, _gather_jit

@@ -2,9 +2,9 @@
 store (`parallel/sequence.py::extract_sequence_dp`), in 2 gloo ranks on the
 CPU.
 
-- `extract_features_dp` (4 frames, 64x80, K = 128, 2 octaves; 2 frames a
-  rank) gathered equals one process's `extract_features` of the 4 frames
-  bit for bit (tests/test_torch_extract.py holds that against the
+- `extract_features_dp` and `extract_features_dp_jit` (4 frames, 64x80, K
+  = 128, 2 octaves; 2 frames a rank) gathered equal one process's
+  `extract_features` of the 4 frames bit for bit (tests/test_torch_extract.py holds that against the
   reference), with the reference's keypoint count per frame.
 - `extract_sequence_dp` (T = 6 at 144x192, K = 768, chunk 4: a full chunk,
   then a tail of 2 padded to the world size) equals one batched
@@ -40,10 +40,11 @@ def _scene(T):
     return frames, SiftConfig(height=H, width=W, max_keypoints=768)
 
 
-def test_extract_features_dp_equals_one_process():
+@pytest.mark.parametrize("jit", [False, True], ids=["eager", "jit"])
+def test_extract_features_dp_equals_one_process(jit):
     imgs = np.stack([fixtures.random_texture(64, 80, seed=s) for s in range(4)])
     cfg = SiftConfig(height=64, width=80, max_keypoints=128, num_octaves=2)
-    out, other = comm.spawn(worker.extract_features_dp, 2, "gloo", "cpu", imgs, cfg,
+    out, other = comm.spawn(worker.extract_features_dp, 2, "gloo", "cpu", imgs, cfg, jit,
                             timeout=120, threads=1)
     one = extract_features(torch.from_numpy(imgs), cfg)
     for name, a, b, c in zip(one._fields, one, out, other):

@@ -2,13 +2,13 @@
 SLAM loop's resident protocol, in 2 gloo ranks on the CPU, against the
 reference's `ResidentBA` on a 2-device mesh.
 
-- One `ResidentBA.solve` on a fixed synthetic window (tests/test_ba.py's
-  `_make_problem(n_cams=4, n_pts=64, seed=7)` placed in slots of a
-  300-slot map on both ranks' blocks, 8 of them fixed), 3 LM x 30 CG
-  steps, which reach the window's least cost: new poses within 1e-4 of the
-  reference's; the same slots written into `map_X`, within 1e-3; after a
-  few host edits a second call uploads exactly the count the reference's
-  `_upload_dirty` returns.  Both ranks return the same bits.  (Steps past
+- One `ResidentBA.solve` (and, as a second case, `ResidentBAJit.solve`)
+  on a fixed synthetic window (tests/test_ba.py's `_make_problem(n_cams=4,
+  n_pts=64, seed=7)` placed in slots of a 300-slot map on both ranks'
+  blocks, 8 of them fixed), 3 LM x 30 CG steps, which reach the window's
+  least cost: new poses within 1e-4 of the reference's; the same slots
+  written into `map_X`, within 1e-3; after a few host edits a second call
+  uploads exactly the count the reference's `_upload_dirty` returns.  Both ranks return the same bits.  (Steps past
   the least cost wander along its flat valley by the rounding of the
   accept test: at 10 or 20 steps the reference's own 1- and 2-device runs
   differ by ~3e-4.)
@@ -59,9 +59,10 @@ def _window():
                                                         prob.pt_idx, prob.uv, prob.intrinsics)))
 
 
-def test_resident_solve_matches_reference():
+@pytest.mark.parametrize("jit", [False, True], ids=["ResidentBA", "ResidentBAJit"])
+def test_resident_solve_matches_reference(jit):
     win = _window()
-    out, other = comm.spawn(worker.resident_solve, 2, "gloo", "cpu", win, EDITS, timeout=120,
+    out, other = comm.spawn(worker.resident_solve, 2, "gloo", "cpu", win, EDITS, jit, timeout=120,
                             threads=1)
     assert all(np.array_equal(a, b) for a, b in zip(out, other))
     cams, cost, first, count, _, _ = out

@@ -10,11 +10,14 @@ tiny SLAM scene is tests/test_multiprocess.py:24-47's (T = 8, 96x128, K =
 import numpy as np
 import torch
 
+from siftgpu_tpu_torch.core import graphs
 from siftgpu_tpu_torch.core.config import MatchConfig, SiftConfig
+from siftgpu_tpu_torch.optim import ba
 from siftgpu_tpu_torch.optim import pose_graph as pg
 from siftgpu_tpu_torch.parallel import (comm, dist_ba, dist_pose_graph, dp, resident_ba, sequence,
                                         spatial)
 from siftgpu_tpu_torch.pipeline import metrics, slam
+from siftgpu_tpu_torch.pipeline.slam import _pull
 
 from chip_smoke import resident_solve  # noqa: F401 (a rank target)
 
@@ -70,9 +73,11 @@ def optimize_pose_graphs(graphs, iters, *, group, device):
     return out
 
 
-def extract_features_dp(images, cfg, *, group, device):
-    """Every rank's gathered Features, as NumPy fields."""
-    f = dp.gather_features(dp.extract_features_dp(images, cfg, group, device), group)
+def extract_features_dp(images, cfg, jit=False, *, group, device):
+    """Every rank's gathered Features (of `extract_features_dp_jit` if
+    `jit`), as NumPy fields."""
+    extract = dp.extract_features_dp_jit if jit else dp.extract_features_dp
+    f = dp.gather_features(extract(images, cfg, group, device), group)
     return [_np(a) for a in f]
 
 
@@ -173,3 +178,114 @@ def spatial_cases(halo_cases, extract_cases, *, group, device):
             continue
         feats.append(([_np(a) for a in f], stats))
     return halos, feats
+
+
+class PreSplitResidentBA(resident_ba.ResidentBA):
+    """`ResidentBA` as it was before its device work became the three
+    programs `_scatter`, `_solve`, `_gather`: an in-place upload, `run_ba`
+    and the gather inline (the old methods, verbatim)."""
+
+    def _upload_dirty(self, map_X):
+        diff = np.nonzero((map_X != self.mirror).any(axis=1))[0]
+        if len(diff) == 0:
+            return 0
+        cap = resident_ba._pow2(len(diff))
+        idx = np.full(cap, self.Ps, np.int64)       # the sink row
+        vals = np.zeros((cap, 3), np.float32)
+        own = diff // self.Ps == self.rank
+        idx[: len(diff)][own] = diff[own] - self.rank * self.Ps
+        vals[: len(diff)] = map_X[diff]
+        self.pts.index_copy_(0, self._t(idx, torch.int64), self._t(vals))
+        self.mirror[diff] = map_X[diff]
+        return len(diff)
+
+    def solve(self, cams, obs_c, obs_p, obs_uv, pt_fixed_host, map_X, iters, n_cg):
+        self._ensure(map_X)
+        self._upload_dirty(map_X)
+        obs_c = np.asarray(obs_c, np.int32)
+        obs_p = np.asarray(obs_p, np.int64)
+        obs_uv = np.asarray(obs_uv, np.float32)
+        owner = obs_p // self.Ps
+        counts = np.bincount(owner, minlength=self.n)
+        Ns = resident_ba._pow2(int(counts.max()) if len(counts) else 1)
+        sel = np.nonzero(owner == self.rank)[0]
+        k = len(sel)
+        cam_s = np.zeros(Ns, np.int32)
+        pt_s = np.zeros(Ns, np.int32)
+        uv_s = np.zeros((Ns, 2), np.float32)
+        w_s = np.zeros(Ns, np.float32)
+        cam_s[:k] = obs_c[sel]
+        pt_s[:k] = obs_p[sel] - self.rank * self.Ps
+        uv_s[:k] = obs_uv[sel]
+        w_s[:k] = 1.0
+        M = map_X.shape[0]
+        fx = np.zeros(self.n * self.Ps, bool)
+        fx[:M] = pt_fixed_host
+        fx_s = fx[self.rank * self.Ps:(self.rank + 1) * self.Ps]
+        prob = ba.BAProblem(
+            cams=self._t(np.asarray(cams, np.float32)), points=self.pts[: self.Ps],
+            intrinsics=self._intr, cam_idx=self._t(cam_s, torch.int32),
+            pt_idx=self._t(pt_s, torch.int32), uv=self._t(uv_s), w=self._t(w_s),
+            pt_fixed=self._t(fx_s, torch.bool))
+        st = ba.run_ba(prob, iters=iters, n_cg=n_cg, fix_first_cam=True, group=self.group)
+        self.pts[: self.Ps] = st.points
+        touched = np.unique(obs_p[~pt_fixed_host[obs_p]])
+        if not len(touched):
+            new_cams, cost = _pull(st.cams, st.cost)
+            return np.array(new_cams), float(cost)
+        capg = resident_ba._pow2(len(touched))
+        gidx = np.full(capg, touched[0], np.int64)
+        gidx[: len(touched)] = touched
+        g_owner = gidx // self.Ps
+        local = np.where(g_owner == self.rank, gidx - self.rank * self.Ps, self.Ps)
+        rows = comm.all_gather_rows(self.pts[self._t(local, torch.int64)], self.group)
+        vals = rows.view(self.n, capg, 3)[self._t(g_owner, torch.int64),
+                                          torch.arange(capg, device=self.device)]
+        new_cams, cost, vals = _pull(st.cams, st.cost, vals)
+        map_X[touched] = vals[: len(touched)]
+        self.mirror[touched] = vals[: len(touched)]
+        return np.array(new_cams), float(cost)
+
+
+def resident_programs(window, edits, *, group, device):
+    """`chip_smoke.resident_solve` in this rank through `PreSplitResidentBA`,
+    `ResidentBA` and `ResidentBAJit` ({"pre_split", "eager", "jit"}: its
+    result and the collectives the run counted, `graphs.COLLECTIVES`), the
+    eager run's collectives counted once more inside a capture's tally
+    ("tallied": (the tally, `COLLECTIVES` unchanged)), and what
+    `graphs.check_backends` does with this rank's group ("backends": the
+    ValueError's text, or None where it passed, for each case)."""
+    def counted(jit):
+        graphs.COLLECTIVES.update(all_reduce=0, all_gather=0)
+        res = resident_solve(window, edits, jit, group=group, device=device)
+        return res, dict(graphs.COLLECTIVES)
+
+    out = {"eager": counted(False), "jit": counted(True)}
+    cls, resident_ba.ResidentBA = resident_ba.ResidentBA, PreSplitResidentBA
+    try:
+        out["pre_split"] = counted(False)
+    finally:
+        resident_ba.ResidentBA = cls
+    before = dict(graphs.COLLECTIVES)
+    with graphs._tally_collectives() as tally:
+        resident_solve(window, edits, group=group, device=device)
+    out["tallied"] = (tally, graphs.COLLECTIVES == before)
+
+    def refusal(device_, arguments=(group,)):
+        try:
+            graphs.check_backends("_solve_jit", arguments, device_)
+        except ValueError as e:
+            return str(e)
+        return None
+
+    cases = {"cuda": refusal("cuda"), "cuda:0 nested": refusal(torch.device("cuda", 0),
+                                                                ((1, [group]),)),
+             "cpu": refusal("cpu"), "no group": refusal("cuda", (None, 3))}
+    get_backend = torch.distributed.get_backend
+    torch.distributed.get_backend = lambda g=None: "nccl"
+    try:
+        cases["nccl"] = refusal("cuda")
+    finally:
+        torch.distributed.get_backend = get_backend
+    out["backends"] = cases
+    return out
