@@ -99,9 +99,18 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      octave kernel must have launched; >= 2 keyframes, > 20 PnP inliers on
      every frame from the bootstrap on, ATE within max(1.5 x the
      reference's, 2% of the span) and a loop closed where the reference
-     (`slam_reference.py`, on the CPU: `SLAM_REF`) closes one; the run
-     repeated under torch.profiler and torch's sync debug mode (launches,
-     copies and CUDA syncs per frame; bit-identical or not); a checkpoint
+     (`slam_reference.py`, on the CPU: `SLAM_REF`) closes one; `run_slam`
+     replays its captured entry points (`slam_entry_points`), captured in
+     that first run (each capture's name, seconds and pool logged, and
+     reserved memory); the run repeated under torch.profiler and torch's
+     sync debug mode (launches, copies and CUDA syncs per frame, every
+     signature already captured; bit-identical or not); the run with the
+     eager functions patched in (`eager_slam`), then replayed again, both
+     timed: the first run bit for bit the eager-patched run (keyframes,
+     inlier counts, trajectory, map, loop and odometry edges and their
+     measurements), the second replayed run too and with no new capture,
+     the launch counters of the eager-patched and the replayed run equal,
+     and the first run's those less its captures' warm-up calls; a checkpoint
      after frame 12 resumed over all 24 frames must replay the first run
      (keyframes, map mask, inlier counts, trajectory within 1e-4, loop
      edges and their measurements within 1e-4); tests/test_relocalization.py's
@@ -109,8 +118,9 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      inliers after it, ATE outside it within max(1.5 x the clean run's, 2%
      of the span); the path's kernels against their plain versions on a
      batch-1 frame, the 2 live keyframes and the loop-closure archive, and
-     the archive match's time at C = 1-16 rows.  Each run prints frames/s
-     and host ms per stage (mean/max).  Then the online loop correction,
+     the archive match's time at C = 1-16 rows, eager and replayed; the
+     captures and reserved memory after the phase.  Each run prints
+     frames/s and host ms per stage (mean/max).  Then the online loop correction,
      launch counters reset to 0: tests/test_loop_closure.py's loop scene
      (online, end-only, plain) and two-loop scene (its mid-run measure)
      with that test's weak SlamConfig, at 144x192 (K = 384) over noise
@@ -120,7 +130,8 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      480x640 (K = 2048), where the reference's own assertions fail, held
      to its own bootstrap (> 20 PnP inliers from frame 1), detection not
      starved and the ATE bound; its six runs share ONLINE_WORKERS spawned
-     processes on the card, their launches summed;
+     processes on the card, their launches summed, each process's captures
+     and reserved memory logged;
   4e. CLI and server path (after 4d): launch counters reset to 0, then
      only the CLI's and the server's own launches count; in process,
      through `cli.main`: `extract` (its `.sift` byte-identical to
@@ -207,8 +218,9 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      `extract_features_jit` (phase 4's frames one at a time, and the batch
      of 4), `match_descriptors_jit` and `match_descriptors_batch_jit`
      (phase 4's 3 pairs), `slam._track_step_jit`, `_match_kf_jit` and
-     `_loop_match_jit` (the first tracking steps of a run_slam on phase
-     4d's scene against their live keyframes, its archive), `pnp.pnp_gn_jit`
+     `_loop_match_jit` (the first tracking steps of an eager-patched
+     run_slam on phase 4d's scene against their live keyframes, its
+     archive), `pnp.pnp_gn_jit`
      (three of that run's PnP problems), `ba.run_ba_jit` (its windowed
      problems at two pow2 buckets), `twoview.two_view_reconstruct_jit`
      (phase 4c's pair and two more of its texture seeds, each with its own
@@ -256,7 +268,8 @@ kernel (`launches`: in phase 4's main path, phase 4b's facade run for
 kernels 4g and 5, phase 4c's two-view call for the small-matrix kernel;
 `twoview_launches`: in phase 4c; `bench_launches`: its launches in one iteration of phase 5b's 640
 and 16k sections; `bench_frame_launches`: in the first calls of its 1080p
-and 4k sections; `slam_launches`: in phase 4d's first run;
+and 4k sections; `slam_launches`: in phase 4d's first run, the warm-up
+calls of its captures included;
 `online_launches`: in phase 4d's online-correction step; `large_launches`:
 in phase 4b2 (kernels 4 and 4g also carry `large_ms`, `large_plain_ms`,
 `large_device_ms` and `large_bound_ms` at 16384^2); `cli_launches`: in
@@ -2119,13 +2132,103 @@ def final_pass(res, intr, dev):
     return res
 
 
+def slam_entry_points():
+    """(module, name, eager function) of each captured entry point that
+    `run_slam` calls."""
+    from siftgpu_tpu_torch.frontend import extract, match
+    from siftgpu_tpu_torch.optim import ba
+    from siftgpu_tpu_torch.pipeline import slam
+
+    return ((slam, "_track_step_jit", slam._track_step), (slam, "_match_kf_jit", slam._match_kf),
+            (slam, "_loop_match_jit", slam._loop_match),
+            (slam, "extract_features_jit", extract.extract_features),
+            (slam, "match_descriptors_jit", match.match_descriptors),
+            (ba, "refine_points_jit", ba.refine_points))
+
+
+@contextlib.contextmanager
+def eager_slam():
+    """Inside the block `run_slam` calls the eager functions where it
+    replays captures (the module attributes patched)."""
+    from unittest import mock
+
+    with contextlib.ExitStack() as stack:
+        for mod, name, eager in slam_entry_points():
+            stack.enter_context(mock.patch.object(mod, name, eager))
+        yield
+
+
+def slam_captures(since=None) -> dict:
+    """name -> the captures that `run_slam`'s entry points hold (those not
+    among `since`, an earlier call's result): {signature: Capture}."""
+    return {name: {key: cap for key, cap in getattr(mod, name).captures.items()
+                   if since is None or key not in since[name]}
+            for mod, name, _ in slam_entry_points()}
+
+
+def captures_line(caps) -> str:
+    """'name: signatures, capture s, pool MiB' of `slam_captures`' result."""
+    return "; ".join(f"{name} {len(c)} ({sum(x.seconds for x in c.values()):.3f} s, "
+                     f"{sum(x.pool_bytes for x in c.values()) / MIB:.1f} MiB)"
+                     for name, c in caps.items() if c) or "none"
+
+
+def warmup_launches(caps) -> dict:
+    """Kernel name -> the launches of the warm-up calls that made `caps`
+    (`graphs.WARMUPS` eager calls a capture, each launching what one replay
+    does)."""
+    from siftgpu_tpu_torch.core import graphs
+    from siftgpu_tpu_torch.ops import _build
+
+    names = {kern: name for name, kern in _build.KERNELS.items()}
+    out = dict.fromkeys(_build.KERNELS, 0)
+    for c in caps.values():
+        for cap in c.values():
+            for kern, n in cap.tally.items():
+                out[names[kern]] += graphs.WARMUPS * n
+    return out
+
+
+def slam_differences(a, b) -> list:
+    """The parts of two `SlamResult`s that differ, floats by their bits:
+    keyframes, inlier counts, trajectory, map (mask, points, anchors,
+    allocation mark), keyframe poses and map ids, loop edges (pair, weight,
+    Sim(3) measurement, fused pairs) and odometry edges."""
+    diff = []
+    if a.keyframe_indices != b.keyframe_indices:
+        diff.append("keyframes")
+    if list(a.num_tracked) != list(b.num_tracked):
+        diff.append("inlier counts")
+    for name in ("trajectory", "map_mask", "map_points", "map_anchor"):
+        if not same_bits(getattr(a, name), getattr(b, name)):
+            diff.append(name)
+    if a.map_n != b.map_n:
+        diff.append("map_n")
+    if len(a.keyframes) != len(b.keyframes) or not all(
+            same_bits(x.pose, y.pose) and same_bits(x.pt_ids, y.pt_ids)
+            for x, y in zip(a.keyframes, b.keyframes)):
+        diff.append("keyframe poses or map ids")
+    if [(e[0], e[1], e[3]) for e in a.loop_edges] != [(e[0], e[1], e[3]) for e in b.loop_edges] \
+            or not all(same_bits(np.asarray(x[2]), np.asarray(y[2])) and same_bits(x[4], y[4])
+                       for x, y in zip(a.loop_edges, b.loop_edges)):
+        diff.append("loop edges")
+    if [e[:2] for e in a.odo_edges] != [e[:2] for e in b.odo_edges] or not all(
+            same_bits(x[2], y[2]) for x, y in zip(a.odo_edges, b.odo_edges)):
+        diff.append("odometry edges")
+    return diff
+
+
 def slam_phase(dev, sync, par, h=H, w=W, k=K):
     """Phase 4d: the SLAM loop (`run_slam`) on the out-and-back loop scene
     (tracking, windowed BA, loop closure with online correction), a
     checkpoint before the revisit resumed over the whole sequence, and the
     blackout scene (LOST state, relocalization), with launch counters reset
-    before the first run.  Returns the hand kernels' launches in that run
-    and phase 4f's reference: the first run's keyframes and frames/s, its
+    before the first run.  `run_slam` replays its captured entry points;
+    the first run captures them and is held bit for bit to the run with
+    the eager functions patched in (`eager_slam`), and its launches less
+    its captures' warm-up calls to that run's.  Returns the hand kernels'
+    launches in the first run (warm-up calls included) and phase 4f's
+    reference: the first run's keyframes and frames/s, its
     trajectory after the end-of-run pass (the resumed run's, which replays
     it) and the ATE bound (None off the reference's size)."""
     import os
@@ -2161,20 +2264,40 @@ def slam_phase(dev, sync, par, h=H, w=W, k=K):
             f"loop edges {[(e[0], e[1]) for e in res.loop_edges]}")
         log(f"    stages (host ms, mean/max): {stage_summary(timings)}")
 
-    # ---- run 1: the whole loop scene, counted and timed ----
-    for kern in _build.KERNELS.values():
-        kern.launches = 0
-    timings = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        sync()
-        t0 = time.perf_counter()
-        res = run(frames, timings=timings, checkpoint_path=os.path.join(tmp, "slam.npz"))
-        sync()
-        sec = time.perf_counter() - t0
-    launches = {name: kern.launches for name, kern in _build.KERNELS.items()}
+    def timed_run(**kw):
+        """The whole loop scene with a checkpoint after each keyframe, its
+        launches counted from 0: (result, seconds, timings, launches)."""
+        for kern in _build.KERNELS.values():
+            kern.launches = 0
+        timings = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            sync()
+            t0 = time.perf_counter()
+            res = run(frames, timings=timings, checkpoint_path=os.path.join(tmp, "slam.npz"),
+                      **kw)
+            sync()
+            sec = time.perf_counter() - t0
+        return res, sec, timings, {name: kern.launches for name, kern in _build.KERNELS.items()}
+
+    def reserved() -> str:
+        if not cuda:
+            return "not on a card"
+        return (f"{torch.cuda.memory_reserved(dev) / MIB:.1f} MiB reserved, "
+                f"{torch.cuda.memory_allocated(dev) / MIB:.1f} MiB allocated")
+
+    # ---- run 1: the whole loop scene, counted and timed; run_slam replays
+    # its captured entry points, captured in this run (phase 5c released them) ----
+    before = slam_captures()
+    res, sec, timings, launches = timed_run()
+    made = slam_captures(before)
+    after1 = slam_captures()
+    warm = warmup_launches(made)
     report(f"loop scene {h}x{w}, K = {k}", res, sec, timings)
     log(f"    PnP inliers per frame {res.num_tracked}")
-    log(f"    hand-kernel launches {launches}: {sum(launches.values()) / T:.2f} per frame")
+    log(f"    hand-kernel launches {launches}: {sum(launches.values()) / T:.2f} per frame, "
+        f"{sum(warm.values())} of them in the captures' warm-up calls")
+    log(f"    captures made: {captures_line(made)}; {sum(map(len, made.values()))} in all, "
+        f"{sum(c.seconds for m in made.values() for c in m.values()):.3f} s; {reserved()}")
     if cuda:
         missing = [n for n in MAIN_KERNELS if launches[n] == 0]
         if missing:
@@ -2218,6 +2341,32 @@ def slam_phase(dev, sync, par, h=H, w=W, k=K):
             f"{kernels / T:.1f} kernel launches and {copies / T:.1f} copies per frame, "
             f"{n_sync / T:.2f} CUDA syncs per frame ({n_sync} in {T} frames, torch sync "
             f"debug mode), {dev_ms:.3f} ms of device time (torch.profiler)")
+        log(f"    captures made in the repeated run: {captures_line(slam_captures(after1))}; "
+            f"{reserved()}")
+
+    # ---- runs 2b-2c: the eager-patched run (the eager functions in place of
+    # the captured entry points), then the replayed run again, both timed ----
+    with eager_slam():
+        eager, sec_e, t_e, l_e = timed_run()
+    caps = slam_captures()
+    again, sec_a, t_a, l_a = timed_run()
+    report("eager-patched run", eager, sec_e, t_e)
+    report("replayed run, every signature captured", again, sec_a, t_a)
+    diff = slam_differences(res, eager)
+    log(f"    run 1 against the eager-patched run: "
+        f"{'bit-identical' if not diff else 'differs in ' + ', '.join(diff)} (keyframes, "
+        f"inlier counts, trajectory, map, loop and odometry edges); launches eager {l_e}, "
+        f"replayed {l_a}, run 1 less its warm-up calls "
+        f"{ {n: launches[n] - warm[n] for n in launches} }")
+    if diff:
+        raise AssertionError(f"SLAM: the replayed run differs from the eager-patched run in {diff}")
+    if slam_differences(again, eager):
+        raise AssertionError("SLAM: the second replayed run differs from the eager-patched run")
+    if slam_captures(caps) != {name: {} for name in caps}:
+        raise AssertionError("SLAM: a run on the same scene made new captures")
+    if l_a != l_e or {n: launches[n] - warm[n] for n in launches} != l_e:
+        raise AssertionError(f"SLAM: launches replayed {l_a}, run 1 {launches} less warm-ups "
+                             f"{warm}, eager {l_e}")
 
     # ---- run 3: checkpoint before the revisit, resume over the whole sequence ----
     tc = SLAM_RESUME_AT
@@ -2319,10 +2468,11 @@ def slam_phase(dev, sync, par, h=H, w=W, k=K):
             for C in (1, 2, 4, 8, 16):
                 idx = torch.arange(C, device=dev) % len(arch)
                 d_c, m_c = ad[idx].contiguous(), am[idx].contiguous()
-                costs.append((C, time_ms(lambda: slam._loop_match(d_c, m_c, cur.kp["desc"], cm,
-                                                                  mcfg), sync, 5)))
-            log("  archive match (CUDA events, ms per call): "
-                + ", ".join(f"C = {C}: {ms:.3f}" for C, ms in costs))
+                costs.append((C, *(time_ms(lambda: fn(d_c, m_c, cur.kp["desc"], cm, mcfg), sync, 5)
+                                   for fn in (slam._loop_match, slam._loop_match_jit))))
+            log("  archive match (CUDA events, ms per call, eager / replayed): "
+                + ", ".join(f"C = {C}: {e:.3f} / {r:.3f}" for C, e, r in costs))
+    log(f"  after phase 4d: run_slam's captures {captures_line(slam_captures())}; {reserved()}")
     return launches, dist_ref
 
 
@@ -2332,7 +2482,8 @@ ONLINE_WORKERS = 3   # processes for the online step's runs on the card (0: in t
 def online_worker(jobs, device):
     """Phase 4d's online step in one spawned process: `online_correction_runs`
     for each (h, w, k, seed) of `jobs` on `device`.  Returns [(job, its
-    numbers, seconds)] and the process's kernel launches."""
+    numbers, seconds)], the process's kernel launches, and its `run_slam`
+    captures (`captures_line`) with its reserved memory."""
     import tempfile
 
     import torch
@@ -2347,7 +2498,10 @@ def online_worker(jobs, device):
         with tempfile.TemporaryDirectory() as tmp:
             got = online_correction_runs(pkg, h, w, k, tmp, seed=seed, device=device)
         done.append(((h, w, k, seed), got, time.perf_counter() - t0))
-    return done, {name: kern.launches for name, kern in _build.KERNELS.items()}
+    held = f"{captures_line(slam_captures())}; " + (
+        f"{torch.cuda.memory_reserved() / MIB:.1f} MiB reserved"
+        if torch.device(device).type == "cuda" else "not on a card")
+    return done, {name: kern.launches for name, kern in _build.KERNELS.items()}, held
 
 
 def online_package():
@@ -2399,11 +2553,13 @@ def online_phase(dev, sync, sizes=None, workers=0):
         with multiprocessing.get_context("spawn").Pool(n) as pool:
             shares = pool.starmap_async(online_worker, [(jobs[r::n], str(dev))
                                                         for r in range(n)])
-            for runs_of_worker, launches in shares.get(timeout=DIST_TIMEOUT):
+            results = shares.get(timeout=DIST_TIMEOUT)
+            for r, (runs_of_worker, launches, held) in enumerate(results):
                 for job, got, sec in runs_of_worker:
                     done[job] = got, sec
                 for name, count in launches.items():
                     _build.KERNELS[name].launches += count
+                log(f"  process {r}: run_slam's captures {held}")
         log(f"  {len(jobs)} runs in {n} spawned processes: "
             f"{time.perf_counter() - t0:.1f} s of wall time")
     for (h, w, k), entry in ONLINE_REF.items():
@@ -4148,7 +4304,8 @@ def graphs_phase(dev, sync, images, feats, h=H, w=W, k=K):
     (`graph_case`).  The inputs: phase 4's four frames one at a time and as
     a batch of 4 (and that batch rolled); phase 4's three pairs, alone and
     as a batch of 3 (rolled); and from one `run_slam` on phase 4d's loop
-    scene, recorded: its first tracking steps of one keyframe count against
+    scene with the eager functions patched in, recorded: its first tracking
+    steps of one keyframe count against
     their live keyframes, its loop-closure archive against three frames'
     descriptors, three PnP problems padded with weight-0 rows to one pow2
     bucket, and its windowed BA problems padded to pow2 observation
@@ -4208,9 +4365,9 @@ def graphs_phase(dev, sync, images, feats, h=H, w=W, k=K):
     # ---- one SLAM run of phase 4d's scene, its device steps recorded ----
     frames, _, intr = slam_loop_scene(fixtures, h, w)
     steps, loops, pnps, bas, boots = [], [], [], [], []
-    with recorded_calls(slam, "_track_step", steps), recorded_calls(slam, "_loop_match", loops), \
-            recorded_calls(pnp, "pnp_gn", pnps), recorded_calls(ba, "run_ba", bas), \
-            recorded_calls(epipolar, "ransac_from_samples", boots):
+    with eager_slam(), recorded_calls(slam, "_track_step_jit", steps), \
+            recorded_calls(slam, "_loop_match_jit", loops), recorded_calls(pnp, "pnp_gn", pnps), \
+            recorded_calls(ba, "run_ba", bas), recorded_calls(epipolar, "ransac_from_samples", boots):
         slam.run_slam(frames, intr, cfg, mcfg, slam_config(slam, w), device=dev)
     log(f"  recorded from run_slam on phase 4d's scene: {len(steps)} tracking steps, "
         f"{len(loops)} archive matches, {len(pnps)} PnP and {len(bas)} windowed BA problems, "

@@ -17,13 +17,19 @@ World frame = camera 0; monocular scale is fixed by the bootstrap baseline
 (`geometry/align.py`).
 
 Differences from the reference:
-  - the loop calls `_track_step`, `_match_kf` and `_loop_match`, eager
-    functions over `extract_features` and `match_descriptors_batch`, the
-    frame's descriptors broadcast against the P live keyframes or the C
-    archive rows; their counterparts of the reference's compiled steps,
-    `_track_step_jit`, `_match_kf_jit` and `_loop_match_jit`, are CUDA
-    graphs captured once per signature (`core/graphs.py`), which the loop
-    does not call yet;
+  - where the reference calls a compiled program of a fixed signature, the
+    loop calls its captured counterpart (`core/graphs.py`: a CUDA graph
+    per signature on the card, the eager function on CPU tensors): the
+    tracking step `_track_step_jit` (or `_match_kf_jit` on pre-extracted
+    features), the bootstrap's `extract_features_jit` and
+    `match_descriptors_jit`, the loop search `_loop_match_jit` (C is a
+    pow2 bucket) and the refit's `ba.refine_points_jit` (pow2 buckets of
+    observations and cameras, weight-0 rows).  A replay computes what the
+    eager call computes, so the run is bit for bit the eager run's.  PnP,
+    the windowed BA, the bootstrap RANSAC, triangulation and the pose
+    graph stay eager: each call has a new N, and a capture per N costs
+    more than it saves, while padding to buckets changes the reductions'
+    order and so the rounding (ROADMAP section 1 item 6);
   - each tracked frame's pairs, counts, x, y and mask come back in ONE copy
     (`_Pull`): packed on the card, copied without blocking into pinned host
     memory, an event recorded, and only then frame t+1 is enqueued
@@ -57,8 +63,8 @@ import numpy as np
 import torch
 
 from ..core.graphs import graphed
-from ..frontend.extract import extract_features
-from ..frontend.match import match_descriptors, match_descriptors_batch
+from ..frontend.extract import extract_features, extract_features_jit
+from ..frontend.match import match_descriptors_batch, match_descriptors_jit
 from ..geometry import epipolar
 from ..geometry import pose as P
 from ..optim import ba, pnp
@@ -166,7 +172,7 @@ def _track_step(frame, kf_desc, kf_mask, cfg, mcfg):
 
 
 # the reference's jitted steps: captured once per signature on CUDA inputs
-# (`core/graphs.py`); `run_slam` still calls the eager functions above
+# (`core/graphs.py`); `run_slam` calls these, never the eager functions above
 _track_step_jit = graphed(_track_step, "_track_step_jit")
 _match_kf_jit = graphed(_match_kf, "_match_kf_jit")
 _loop_match_jit = graphed(_loop_match, "_loop_match_jit")
@@ -339,6 +345,7 @@ def apply_pose_graph_sim3(
     graph = pg.Sim3PoseGraph(poses=poses, edge_i=eit, edge_j=ejt,
                              t_meas=torch.cat([t_meas, loop_meas]), weight=weight_t)
     n_fix = max(1, min(n_fix, Mk - 1))
+    # eager: the graph's size changes every correction (ROADMAP section 1 item 6)
     if optimizer is not None:
         out, _ = optimizer(graph, iters, n_fix)
     elif Mk <= 64:
@@ -461,7 +468,7 @@ def refit_map_points(keyframes, map_X, map_mask, intr, iters: int = 3, device="c
     ci_t, pi_t = _upload(dev, ci_a, pi_a, dtype=torch.int32)
     prob = ba.BAProblem(cams=cams_t, points=pts_t, intrinsics=intr_t,
                         cam_idx=ci_t, pt_idx=pi_t, uv=uv_t, w=w_t)
-    (map_X[:],) = _pull(ba.refine_points(prob, iters))
+    (map_X[:],) = _pull(ba.refine_points_jit(prob, iters))
 
 
 @contextmanager
@@ -547,7 +554,7 @@ def run_slam(frames, intr, cfg, mcfg, scfg: SlamConfig,
     def extract(t):
         if features is not None:
             return features.frame_feats(t)
-        return extract_features(frame_on_device(t)[None], cfg)
+        return extract_features_jit(frame_on_device(t)[None], cfg)
 
     def host_kp(t, ft):
         """Host copies of frame t's keypoints (one pull), or the
@@ -558,7 +565,7 @@ def run_slam(frames, intr, cfg, mcfg, scfg: SlamConfig,
         return dict(x=x, y=y, desc=ft.desc[0], mask=mask)
 
     def match(fa, fb):
-        res = match_descriptors(fa.desc[0], fb.desc[0], fa.mask[0], fb.mask[0], mcfg)
+        res = match_descriptors_jit(fa.desc[0], fb.desc[0], fa.mask[0], fb.mask[0], mcfg)
         pairs, count = _pull(res.pairs, res.count)
         return pairs[: int(count)].astype(np.int64)
 
@@ -574,6 +581,7 @@ def run_slam(frames, intr, cfg, mcfg, scfg: SlamConfig,
         """PnP on the device -> (pose [6], inliers, inlier mask), one pull."""
         X_t, uv_t, p0 = _upload(dev, X, uv, pose0)
         w1 = torch.ones(len(X), dtype=torch.float32, device=dev)
+        # eager: N changes every call (ROADMAP section 1 item 6)
         res = pnp.pnp_gn(X_t, uv_t, w1, intr_t, p0, iters=iters,
                          huber_px=scfg.huber_px, inlier_px=scfg.inlier_px)
         pose, n_inl, inl = _pull(res.pose, res.num_inliers, res.inliers)
@@ -585,6 +593,7 @@ def run_slam(frames, intr, cfg, mcfg, scfg: SlamConfig,
         Rc, tc = rt(cur_pose)
         x0n, _ = normalized(kf.kp, pairs[:, 0])
         x1n, _ = normalized(cur_kp, pairs[:, 1])
+        # eager: N changes every keyframe (ROADMAP section 1 item 6)
         (X,) = _pull(P.triangulate(*_upload(dev, Rk, tk, Rc, tc, x0n, x1n)))
         zk = X @ Rk.T + tk
         zc = X @ Rc.T + tc
@@ -654,7 +663,7 @@ def run_slam(frames, intr, cfg, mcfg, scfg: SlamConfig,
             )
             if ba_fn is not None:  # e.g. a distributed Schur solve
                 state = ba_fn(prob, scfg.ba_iters, scfg.ba_cg)
-            else:
+            else:   # eager: N changes every keyframe (ROADMAP section 1 item 6)
                 state = ba.run_ba(prob, iters=scfg.ba_iters, n_cg=scfg.ba_cg)
             new_cams, map_X, cost = _pull(state.cams, state.points, state.cost)
         for ci, k in enumerate(win):
@@ -738,7 +747,7 @@ def run_slam(frames, intr, cfg, mcfg, scfg: SlamConfig,
                 m_dev[s].copy_(mrow)
         arch_cache.update(cand=tuple(cand), C=C, d=d_dev, m=m_dev)
         (cur_m,) = _upload(dev, np.asarray(cur_mask), dtype=torch.bool)
-        pairs_np, counts_np = _pull(*_loop_match(d_dev, m_dev, cur_desc, cur_m, mcfg))
+        pairs_np, counts_np = _pull(*_loop_match_jit(d_dev, m_dev, cur_desc, cur_m, mcfg))
         return cand, pairs_np.astype(np.int64), counts_np[: len(cand)]
 
     def detect_loop(kf: Keyframe):
@@ -922,11 +931,11 @@ def run_slam(frames, intr, cfg, mcfg, scfg: SlamConfig,
 
         def dispatch(ti, d_kf, m_kf):
             if features is None:
-                ft, pairs_dev, counts_dev = _track_step(frame_on_device(ti), d_kf, m_kf,
-                                                        cfg, mcfg)
+                ft, pairs_dev, counts_dev = _track_step_jit(frame_on_device(ti), d_kf, m_kf,
+                                                            cfg, mcfg)
                 return ti, ft, _Pull([pairs_dev, counts_dev, ft.x[0], ft.y[0], ft.mask[0]])
             ft = extract(ti)
-            return ti, ft, _Pull(_match_kf(d_kf, m_kf, ft.desc[0], ft.mask[0], mcfg))
+            return ti, ft, _Pull(_match_kf_jit(d_kf, m_kf, ft.desc[0], ft.mask[0], mcfg))
 
         while t < T:
             t_start = time.perf_counter()
@@ -1217,6 +1226,7 @@ def run_slam(frames, intr, cfg, mcfg, scfg: SlamConfig,
         f_mean = float(fxy.mean())
         x0t, x1t = _upload(dev, x0n, x1n)
         valid = torch.ones(len(pairs), dtype=torch.bool, device=dev)
+        # eager: N changes with the bootstrap frame (ROADMAP section 1 item 6)
         draws = epipolar.sample_minimal_sets(valid, 256, generator)
         rr = epipolar.ransac_from_samples(x0t, x1t, valid, draws,
                                           threshold=(2.0 / f_mean) ** 2)
