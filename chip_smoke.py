@@ -62,16 +62,34 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      main-path kernel must have launched; >= 90% known-shift inliers per
      pair; frame 0 on the CPU must pair >= 99% of its keypoints with the
      card's;
-  4b. facade path: launch counters reset to 0, the facade calls above and
-     `run_sift` with `-v 2` (its stage table logged); both facade kernels
-     must have launched, the sampler once per octave in descriptor-only
-     mode; >= 90% inliers for plain and guided matching and every guided
+  4b. facade path: launch counters reset to 0 and the facade's captures
+     dropped, the facade calls above, each replaying the capture its first
+     call made, and `run_sift` with `-v 2` (its stage table logged); then
+     the same calls on the eager-patched facade (`eager_facade`, not
+     counted), on which the facade kernels' calls are recorded: every
+     replayed call bit for bit with it (keypoints, descriptors, pairs of
+     plain, H, F and H+F matching, descriptor-only, -obo, -fo -1); both
+     facade kernels must have launched, the sampler once per octave in
+     descriptor-only mode (a first call 3 times that: its capture's two
+     warm-up calls and the replay; a second call and the eager-patched one
+     once); >= 90% inliers for plain and guided matching and every guided
      pair inside its gate; descriptor-only descriptors against the full
      pipeline's (cosine min > 0.95, mean > 0.99) and within 1 step of the
      CPU's; its per-octave sampler calls replayed into one shared buffer by
-     the kernel and the plain version, equal to the run's; -obo identical
-     to the default extraction; -fo -1 pairing >= 99% of its keypoints with
-     the CPU's;
+     the kernel and the plain version, equal to the run's; -obo identical to
+     the default extraction; -fo -1 pairing >= 99% of its keypoints with the
+     CPU's; then the bound on the captures the facade holds
+     (`facade_sizes`): `run_sift` at each of 240x320, 480x640, 600x800,
+     768x1024 and 1088x1920 captured alone (its pool), then that sequence
+     and 240x320 again, twice from an empty facade, at the facade's limit
+     (nothing dropped, no capture in the second pass, the family's pool
+     below the sizes' pools summed and within 1.5 x the 1088x1920 pool) and
+     with the limit patched to 4 (never more held, 240x320 then 480x640
+     dropped, a second pass growing reserved memory by no more than the
+     largest pool), every call equal to the first call of its size and to
+     the eager-patched call; then descriptor-only mode at 8 keypoint counts
+     (`facade_describe_counts`): one capture for each power of two, every
+     count bit for bit with the eager describe of its keypoints alone;
   4b2. large-set matcher (bench.py:196-228): launch counters reset to 0,
      `match_descriptors` on bench.py's 16384 x 16384 random sets and on a
      known-correspondence set (d0 permuted, 10% of its bytes moved by up
@@ -132,26 +150,29 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      starved and the ATE bound; its six runs share ONLINE_WORKERS spawned
      processes on the card, their launches summed, each process's captures
      and reserved memory logged;
-  4e. CLI and server path (after 4d): launch counters reset to 0, then
-     only the CLI's and the server's own launches count; in process,
-     through `cli.main`: `extract` (its `.sift` byte-identical to
+  4e. CLI and server path (after 4d): launch counters reset to 0, then only
+     the CLI's and the server's own launches count; in process, through
+     `cli.main`: `extract` (its `.sift` byte-identical to the eager-patched
      `SiftTPU.save_sift` of the same loaded image, its `--npz` store with
      the reference's keys and dtypes), `match --viz` (the facade's printed
      count, >= 90% shift inliers), `dump --kp` (every file at its octave's
      shape) and `twoview` on phase 4c's pair as `.npy` (its ground-truth
-     bounds); kernels 1-4 and the octave kernel must have launched; the
-     port's `serve` in a thread driven by its client: RUNSIFT,
+     bounds), through `two_view_reconstruct_jit`: the first call (its
+     capture) and a second (a replay) bit for bit with an eager-patched
+     call, the three timed; kernels 1-4 and the octave kernel must have
+     launched; the port's `serve` in a thread driven by its client: RUNSIFT,
      SET_DESCRIPTORS + GET_MATCH on 4096-padded sets, GET_GUIDED_MATCH (H),
      SET_KEYPOINT_LIST + RUNSIFT_WITH_KEYPOINTS, each bit-identical to the
-     in-process call; kernels 4g and 5 must have launched; the host ms of
-     RUNSIFT + GET_FEATURE_VECTOR remote and in process; a spawned server
-     (`create_remote_sift_tpu(spawn=True)`): its start time, features
-     bit-identical, exit code 0; in child processes, `slam` on phase 4d's
-     loop scene (default SlamConfig): 24 TUM rows with unit quaternions,
-     within 2e-6 of an in-process `run_slam` + the final pose-graph pass,
-     the reference's metric event kinds, and `--resume` from its checkpoint
-     within 2e-6 of it; `speed --iters 20`, then with `--trace` (a Chrome
-     trace with CUDA kernel events);
+     eager-patched in-process call (the server's captures are made in its
+     thread while this one waits for the reply); kernels 4g and 5 must have
+     launched; the host ms of RUNSIFT + GET_FEATURE_VECTOR remote and in
+     process; a spawned server (`create_remote_sift_tpu(spawn=True)`): its
+     start time, features bit-identical, exit code 0; in child processes,
+     `slam` on phase 4d's loop scene (default SlamConfig): 24 TUM rows with
+     unit quaternions, within 2e-6 of an in-process `run_slam` + the final
+     pose-graph pass, the reference's metric event kinds, and `--resume`
+     from its checkpoint within 2e-6 of it; `speed --iters 20`, then with
+     `--trace` (a Chrome trace with CUDA kernel events);
   4f. config 5 (after 4e): `siftgpu_tpu_torch.parallel` in 2 ranks spawned
      on this card with gloo (CUDA tensors staged through the host; NCCL
      refuses two ranks on one device), which load the parent's libraries:
@@ -195,7 +216,8 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      card (1, 2 and 4 spatial pairs): every rank passes its own ATE bound
      and agrees with rank 0 on every summary, each pair's slab counts equal
      to the first two frames';
-  5. times: extract and match per batch, the facade calls, the whole
+  5. times: extract and match per batch, the facade calls (eager-patched
+     against replayed, in turns), the whole
      pyramid with the octave kernel and with the cuDNN chain, the two-view
      stages (CUDA events); each kernel against its plain version and, where
      one PyTorch call computes the same function, that call, at its path's
@@ -265,7 +287,8 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
 Any failed check raises, a failed rank included.  The last three lines
 are the card's name and power limit, one JSON object with a record per
 kernel (`launches`: in phase 4's main path, phase 4b's facade run for
-kernels 4g and 5, phase 4c's two-view call for the small-matrix kernel;
+kernels 4g and 5, the warm-up calls of its captures included, phase 4c's
+two-view call for the small-matrix kernel;
 `twoview_launches`: in phase 4c; `bench_launches`: its launches in one iteration of phase 5b's 640
 and 16k sections; `bench_frame_launches`: in the first calls of its 1080p
 and 4k sections; `slam_launches`: in phase 4d's first run, the warm-up
@@ -1653,30 +1676,139 @@ def epipolar_distance(F, p0, p1) -> np.ndarray:
     return np.maximum(da, db)
 
 
-def facade_phase(dev, sync, frames, k):
-    """Phase 4b: the facade path with launch counters reset before it.
-    Returns (launches, the recorded kernel calls, the timed facade calls)."""
-    import torch
+def facade_entry_points():
+    """(module, name, eager function) of each captured entry point that the
+    facade (`pipeline/api.py`) and the CLI's `twoview` call."""
+    from siftgpu_tpu_torch.frontend import extract, match, redetect
+    from siftgpu_tpu_torch.pipeline import api, twoview
 
+    return ((api, "extract_features_jit", extract.extract_features),
+            (api, "extract_features_obo_jit", extract.extract_features_obo),
+            (api, "describe_at_keypoints_jit", redetect.describe_at_keypoints),
+            (api, "match_descriptors_jit", match.match_descriptors),
+            (api, "guided_match_descriptors_jit", match.guided_match_descriptors),
+            (twoview, "two_view_reconstruct_jit", twoview.two_view_reconstruct))
+
+
+@contextlib.contextmanager
+def eager_facade():
+    """Inside the block the facade and the CLI's `twoview` call the eager
+    functions where they replay captures (the module attributes patched)."""
+    from unittest import mock
+
+    with contextlib.ExitStack() as stack:
+        for mod, name, eager in facade_entry_points():
+            stack.enter_context(mock.patch.object(mod, name, eager))
+        yield
+
+
+def run_facade(dev, frames, k, guided_kw, gated=None, sampled=None):
+    """The facade's calls on two frames: `run_sift` on each,
+    `get_sift_match` and `get_guided_sift_match` (each of `guided_kw`) on
+    4096-padded sets, descriptor-only mode on frame 0's keypoints, `-obo`
+    on frame 0 and `-fo -1` on frame 0 at half size.  The kernel calls of
+    the guided matches and of descriptor-only mode are recorded into
+    `gated` and `sampled` if given.  Returns ({call: its outputs as NumPy
+    arrays}, {name: the facade objects and features}, the sampler launches
+    of the descriptor-only call)."""
     from siftgpu_tpu_torch.frontend import describe, match as fmatch
-    from siftgpu_tpu_torch.ops import _build
+    from siftgpu_tpu_torch.ops import desc_sampler as dsm
     from siftgpu_tpu_torch.pipeline.api import SiftMatchTPU, SiftTPU
 
+    out, objs = {}, {}
+    sift = SiftTPU(device=dev, max_keypoints=k)
+    feats = []
+    for i, img in enumerate(frames):
+        sift.run_sift(img)
+        feats.append(sift.get_feature_vector())
+        out[f"run_sift {i}"] = feats[-1]
+        objs[f"feats {i}"] = sift._feats
+    matcher = SiftMatchTPU(max_sift=4096, device=dev)
+    for i, (kk, dd) in enumerate(feats):
+        matcher.set_descriptors(i, dd)
+        matcher.set_feature_location(i, kk)
+    out["get_sift_match"] = (matcher.get_sift_match(),)
+    rec = lambda name, calls: contextlib.nullcontext() if calls is None else recording(
+        fmatch if name == "match_best2_gated" else describe, name, calls)
+    with rec("match_best2_gated", gated):
+        for label, kw in guided_kw.items():
+            out[f"get_guided_sift_match {label}"] = (matcher.get_guided_sift_match(**kw),)
+    n0 = dsm.KERNEL.launches
+    with rec("sample_gradients", sampled):
+        sift.set_keypoint_list(feats[0][0])
+        sift.run_sift_with_keypoints(frames[0])
+    desc_launches = dsm.KERNEL.launches - n0
+    out["run_sift_with_keypoints"] = tuple(t.cpu().numpy() for t in sift._feats)
+    obo = SiftTPU(["-obo"], device=dev, max_keypoints=k)
+    obo.run_sift(frames[0])
+    out["-obo"] = tuple(t.cpu().numpy() for t in obo._feats)
+    objs["-obo"] = obo._feats
+    h, w = frames[0].shape
+    up = SiftTPU(["-fo", "-1"], device=dev, max_keypoints=k)
+    up.run_sift(make_frames(h // 2, w // 2, 1)[0])
+    out["-fo -1"] = up.get_feature_vector()
+    objs.update(sift=sift, matcher=matcher, up=up)
+    return out, objs, desc_launches
+
+
+def same_outputs(a, b) -> bool:
+    """Two `run_facade` outputs (tuples of NumPy arrays) equal bit for bit."""
+    return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+
+
+def facade_phase(dev, sync, frames, k):
+    """Phase 4b: the facade path with launch counters reset before it, its
+    calls replaying their captures (each first call captures); then the
+    same calls on the eager-patched facade (`eager_facade`, not counted),
+    which records the facade kernels' calls and which every replayed call
+    must equal bit for bit.  Returns (launches, the recorded kernel calls,
+    the timed facade calls)."""
+    import torch
+
+    from siftgpu_tpu_torch.core import graphs
+    from siftgpu_tpu_torch.frontend import extract, match as fmatch
+    from siftgpu_tpu_torch.ops import _build, desc_sampler as dsm
+    from siftgpu_tpu_torch.pipeline import api
+    from siftgpu_tpu_torch.pipeline.api import SiftTPU
+
     log("phase 4b: facade path")
+    cuda = torch.device(dev).type == "cuda"
+    api.release_captures()   # the phase makes every facade capture it replays
     sampled, gated = [], []
     for kern in _build.KERNELS.values():
         kern.launches = 0
-    sift = SiftTPU(device=dev, max_keypoints=k)
-    sift.run_sift(frames[0])
-    feats0 = sift._feats
-    k0, d0 = sift.get_feature_vector()
-    sift.run_sift(frames[1])
-    k1, d1 = sift.get_feature_vector()
-    matcher = SiftMatchTPU(max_sift=4096, device=dev)
-    for i, (kk, dd) in enumerate(((k0, d0), (k1, d1))):
-        matcher.set_descriptors(i, dd)
-        matcher.set_feature_location(i, kk)
-    pairs = matcher.get_sift_match()
+    Hm = np.array([[1, 0, SHIFT[0]], [0, 1, SHIFT[1]], [0, 0, 1]], np.float32)
+    F = cross(*SHIFT)
+    guided_kw = {"H": dict(H=Hm, hdistmax=3.0), "F": dict(F=F, fdistmax=2.0),
+                 "H+F": dict(H=Hm, F=F, hdistmax=3.0, fdistmax=2.0)}
+    got, objs, first_desc = run_facade(dev, frames, k, guided_kw)
+    sift, matcher = objs["sift"], objs["matcher"]
+    n_oct = sift._cfg.octaves
+    n0 = dsm.KERNEL.launches
+    sift.run_sift_with_keypoints(frames[0])   # replays only
+    again = dsm.KERNEL.launches - n0
+    with uncounted(), eager_facade():
+        ref, _, eager_desc = run_facade(dev, frames, k, guided_kw, gated, sampled)
+    sync()
+    # a first call launches the warm-up calls' kernels and one replay's
+    want = [(graphs.WARMUPS + 1) * n_oct, n_oct, n_oct] if cuda else [0, 0, 0]
+    log(f"  run_sift_with_keypoints: sampler launches {first_desc} in the first replayed call "
+        f"(its capture's {graphs.WARMUPS} warm-up calls and the replay), {again} in the second, "
+        f"{eager_desc} eager-patched; {n_oct} octaves")
+    if [first_desc, again, eager_desc] != want:
+        raise AssertionError(f"descriptor-only: sampler launches {[first_desc, again, eager_desc]}, "
+                             f"not {want}")
+    differ = [c for c in got if not same_outputs(got[c], ref[c])]
+    log(f"  replayed facade against the eager-patched facade, bit for bit: {len(got) - len(differ)} "
+        f"of {len(got)} calls equal ({', '.join(got)}); captures "
+        + "; ".join(f"{g.__name__} {len(g.captures)} ({sum(c.seconds for c in g.captures.values()):.3f}"
+                    f" s)" for g in api.FACADE.members + extract.OBO_FAMILY.members)
+        + f"; the facade family's pool {api.FACADE.pool_bytes() / MIB:.1f} MiB")
+    if differ:
+        raise AssertionError(f"facade: replayed calls differ from the eager-patched ones: {differ}")
+
+    (k0, d0), (k1, d1) = got["run_sift 0"], got["run_sift 1"]
+    pairs = got["get_sift_match"][0]
     rate = shift_inliers(k0, k1, pairs)
     log(f"  run_sift: {len(k0)}, {len(k1)} keypoints; get_sift_match: {len(pairs)} pairs, "
         f"inlier rate {rate:.4f}")
@@ -1693,27 +1825,22 @@ def facade_phase(dev, sync, frames, k):
             "pyramid", "detect", "gradients", "orient+desc", "assemble", "TOTAL"]:
         raise AssertionError(f"-v 2: unexpected output {lines}")
 
-    Hm = np.array([[1, 0, SHIFT[0]], [0, 1, SHIFT[1]], [0, 0, 1]], np.float32)
-    F = cross(*SHIFT)
-    guided_kw = {"H": dict(H=Hm, hdistmax=3.0), "F": dict(F=F, fdistmax=2.0),
-                 "H+F": dict(H=Hm, F=F, hdistmax=3.0, fdistmax=2.0)}
-    with recording(fmatch, "match_best2_gated", gated):
-        for label, kw in guided_kw.items():
-            gp = matcher.get_guided_sift_match(**kw)
-            p0, p1 = k0[gp[:, 0], :2].astype(np.float64), k1[gp[:, 1], :2].astype(np.float64)
-            if "H" in kw:  # the f32 gate may pass pairs within f32 rounding of the bound
-                d = np.hypot(*(p1 - (p0 + np.array(SHIFT))).T)
-                if len(d) and d.max() > 3.0 * (1 + 1e-5):
-                    raise AssertionError(f"guided {label}: a pair {d.max()} px from H x0")
-            if "F" in kw:
-                d = epipolar_distance(F, p0, p1)
-                if len(d) and d.max() > 2.0 * (1 + 1e-5) + 1e-4:
-                    raise AssertionError(f"guided {label}: a pair {d.max()} px off its epiline")
-            rate = shift_inliers(k0, k1, gp)
-            log(f"  get_guided_sift_match ({label}): {len(gp)} pairs, all inside the gate, "
-                f"inlier rate {rate:.4f}")
-            if rate < 0.9 or len(gp) < 100:
-                raise AssertionError(f"guided {label}: inlier rate {rate}, {len(gp)} pairs")
+    for label, kw in guided_kw.items():
+        gp = got[f"get_guided_sift_match {label}"][0]
+        p0, p1 = k0[gp[:, 0], :2].astype(np.float64), k1[gp[:, 1], :2].astype(np.float64)
+        if "H" in kw:  # the f32 gate may pass pairs within f32 rounding of the bound
+            d = np.hypot(*(p1 - (p0 + np.array(SHIFT))).T)
+            if len(d) and d.max() > 3.0 * (1 + 1e-5):
+                raise AssertionError(f"guided {label}: a pair {d.max()} px from H x0")
+        if "F" in kw:
+            d = epipolar_distance(F, p0, p1)
+            if len(d) and d.max() > 2.0 * (1 + 1e-5) + 1e-4:
+                raise AssertionError(f"guided {label}: a pair {d.max()} px off its epiline")
+        rate = shift_inliers(k0, k1, gp)
+        log(f"  get_guided_sift_match ({label}): {len(gp)} pairs, all inside the gate, "
+            f"inlier rate {rate:.4f}")
+        if rate < 0.9 or len(gp) < 100:
+            raise AssertionError(f"guided {label}: inlier rate {rate}, {len(gp)} pairs")
     # the gate operands are formed elementwise (no TF32 matmul): the card's
     # equal the CPU's bit for bit
     locs = [torch.from_numpy(np.pad(kk[:, :2], ((0, 4096 - len(kk)), (0, 0)))) for kk in (k0, k1)]
@@ -1724,16 +1851,6 @@ def facade_phase(dev, sync, frames, k):
             raise AssertionError(f"guided {label}: gate operands differ between the card and the CPU")
     log("  gate operands: the card's bit-identical to the CPU's for H, F and H+F")
 
-    from siftgpu_tpu_torch.ops import desc_sampler as dsm
-
-    n0 = dsm.KERNEL.launches
-    with recording(describe, "sample_gradients", sampled):
-        sift.set_keypoint_list(k0)
-        sift.run_sift_with_keypoints(frames[0])
-    n_oct = sift._cfg.octaves
-    if dev == "cuda" and dsm.KERNEL.launches - n0 != n_oct:
-        raise AssertionError(f"descriptor-only: {dsm.KERNEL.launches - n0} sampler launches, "
-                             f"not one per octave ({n_oct})")
     fk = sift._feats
     dk = fk.desc[0].cpu().numpy()
     if not bool(fk.mask.all()):
@@ -1753,30 +1870,26 @@ def facade_phase(dev, sync, frames, k):
     if same.mean() < 0.99 or (step.size and step.max() > 1):
         raise AssertionError("descriptor-only: card and CPU disagree")
 
-    obo = SiftTPU(["-obo"], device=dev, max_keypoints=k)
-    obo.run_sift(frames[0])
+    feats0, obo = objs["feats 0"], objs["-obo"]
     m = feats0.mask
-    if not torch.equal(obo._feats.mask, m) or not all(
-            torch.equal(x[m], y[m]) for x, y in zip(feats0, obo._feats)):
+    if not torch.equal(obo.mask, m) or not all(torch.equal(x[m], y[m]) for x, y in zip(feats0, obo)):
         raise AssertionError("-obo differs from the default extraction")
     log(f"  -obo: identical to the default extraction in all {int(m.sum())} valid slots")
 
     h, w = frames[0].shape
     small = make_frames(h // 2, w // 2, 1)[0]
-    up = SiftTPU(["-fo", "-1"], device=dev, max_keypoints=k)
-    up.run_sift(small)
     upc = SiftTPU(["-fo", "-1"], device="cpu", max_keypoints=k)
     upc.run_sift(small)
-    (ku, _), (kc, _) = up.get_feature_vector(), upc.get_feature_vector()
+    ku, kc = got["-fo -1"][0], upc.get_feature_vector()[0]
     share = paired_share(kc[:, 0], kc[:, 1], ku[:, 0], ku[:, 1])
-    log(f"  -fo -1 on {h // 2}x{w // 2} (octave 0 {up._cfg.base_shape}): {len(ku)} keypoints, "
-        f"{share:.4f} of the CPU's {len(kc)} paired within 0.5 px")
+    log(f"  -fo -1 on {h // 2}x{w // 2} (octave 0 {objs['up']._cfg.base_shape}): {len(ku)} "
+        f"keypoints, {share:.4f} of the CPU's {len(kc)} paired within 0.5 px")
     if share < 0.99 or abs(len(ku) - len(kc)) > 0.01 * len(kc):
         raise AssertionError(f"-fo -1: CPU vs card paired share {share}")
     sync()
     launches = {name: kern.launches for name, kern in _build.KERNELS.items()}
     log(f"  launches {launches}")
-    if dev == "cuda":
+    if cuda:
         missing = [n for n in FACADE_KERNELS if launches[n] == 0]
         if missing:
             raise AssertionError(f"facade path did not launch {missing}")
@@ -1787,6 +1900,231 @@ def facade_phase(dev, sync, frames, k):
         "run_sift_with_keypoints": lambda: sift.run_sift_with_keypoints(frames[0]),
     }
     return launches, sampled, gated, timed
+
+
+FACADE_SIZES = ((240, 320), (480, 640), (600, 800), (768, 1024), (1088, 1920), (240, 320))
+FACADE_POOL_TARGET = 1.5    # the family's pool after the sequence, in pools of the largest alone
+FACADE_SMALL_LIMIT = 4      # the limit patched in to show eviction on the six sizes
+DESCRIBE_SHARES = (0.05, 0.1, 0.2, 0.3, 0.45, 0.6, 0.8, 1.0)   # keypoint counts, of a frame's
+
+
+def facade_sizes(dev, sync, card, scale: int = 1):
+    """Phase 4b, the bound on the captures held: `run_sift` (the facade's
+    default config) at each size of `FACADE_SIZES` (divided by `scale`)
+    captured alone into an empty facade (its pool); then the sequence twice
+    from an empty facade at the family's limit (`api.MAX_CAPTURES`), and
+    twice more with the limit patched to `FACADE_SMALL_LIMIT`; then each
+    size eager-patched.  Raises unless every replayed size equals the
+    eager-patched call bit for bit and every call the first of its size;
+    at the real limit no capture is dropped, the second pass captures
+    nothing, and the family's pool (the allocator's segments) is below the
+    sizes' pools summed and within `FACADE_POOL_TARGET` x the largest alone;
+    at the small limit no more than that many sizes are held, 240x320 then
+    480x640 are dropped, 240x320 is recaptured, and the second pass grows
+    reserved memory by no more than the largest pool alone.  Logs each
+    capture's seconds, each call's host ms, the sizes held, the pools and
+    reserved memory.  Releases the facade's captures."""
+    import torch
+    from unittest import mock
+
+    from siftgpu_tpu_torch.pipeline import api
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    seq = [(h // scale, w // scale) for h, w in FACADE_SIZES]
+    sizes = list(dict.fromkeys(seq))
+    imgs = {s: make_frames(*s, 1)[0] for s in sizes}
+    sift = api.SiftTPU(device=dev)
+    ex = api.extract_features_jit
+
+    def reserved() -> float:
+        if not cuda:
+            return 0.0
+        sync()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(dev) / MIB
+
+    def held() -> list:
+        """The sizes of the extract captures held, least recently used first."""
+        return [(dict(k)["cfg"][1].height, dict(k)["cfg"][1].width)
+                for g, k in api.FACADE.held(dev) if g is ex]
+
+    def run(s):
+        before = set(ex.captures)
+        t0 = time.perf_counter()
+        sift.run_sift(imgs[s])
+        out = sift.get_feature_vector()   # its .cpu() waits for the card
+        ms = (time.perf_counter() - t0) * 1e3
+        return out, [c for key, c in ex.captures.items() if key not in before], ms
+
+    alone = {}
+    for s in sizes:
+        api.release_captures()
+        reserved()
+        new = run(s)[1]
+        alone[s] = new.pop().pool_bytes / MIB if new else 0.0   # keeps no capture alive
+    log("  each size captured alone into an empty facade, pool MiB: "
+        + ", ".join(f"{h}x{w} {alone[(h, w)]:.1f}" for h, w in sizes))
+    first = {}
+
+    def sequence(limit: int) -> dict:
+        """The sequence twice from an empty facade at `limit`."""
+        api.release_captures()
+        r0 = reserved()
+        out = dict(limit=limit, reserved=[r0], dropped=[], captures=[], ms=[])
+        for p in range(2):
+            steps, ms, made = [], [], 0
+            for s in seq:
+                was = held()
+                got, new, t = run(s)
+                now = held()
+                if len(api.FACADE.held(dev)) > limit:
+                    raise AssertionError(f"the facade holds {len(api.FACADE.held(dev))} captures")
+                if p == 0:
+                    out["dropped"] += [x for x in was if x not in now]
+                if s in first and not same_outputs(got, first[s]):
+                    raise AssertionError(f"run_sift {s}: a call at limit {limit}, pass {p + 1}, "
+                                         f"differs from the first")
+                first.setdefault(s, got)
+                made += len(new)
+                ms.append(t)
+                steps.append(f"{s[0]}x{s[1]} " + (f"captured {new[0].seconds:.3f} s" if new
+                                                  else "replayed") + f" {t:.2f} ms")
+            out["reserved"].append(reserved())
+            out["captures"].append(made)
+            out["ms"].append(ms)
+            if p == 0:
+                out["held"] = held()
+                out["pool"] = api.FACADE.pool_bytes() / MIB
+                out["segments"] = pool_segments_mib(
+                    [c.graph for g in api.FACADE.members for c in g.captures.values()]) \
+                    if cuda else 0.0
+            log(f"  limit {limit}, pass {p + 1}: {made} captures; " + "; ".join(steps))
+        return out
+
+    full = sequence(api.MAX_CAPTURES)
+    with mock.patch.object(api.FACADE, "limit", FACADE_SMALL_LIMIT):
+        small = sequence(FACADE_SMALL_LIMIT)
+    api.release_captures()
+    eager_ms = {}
+    with uncounted(), eager_facade():
+        eager = {}
+        for s in sizes:
+            run(s)
+            eager[s], _, eager_ms[s] = run(s)
+    differ = [s for s in sizes if not same_outputs(first[s], eager[s])]
+    big = alone[sizes[-1]]
+    mean = lambda xs: sum(xs) / len(xs)
+    eager_seq = mean([eager_ms[s] for s in seq])
+    for r in (full, small):
+        r0, r1, r2 = r["reserved"]
+        log(f"  limit {r['limit']}: sizes held after pass 1 {r['held']} (least recently used "
+            f"first), dropped in turn {r['dropped']}; captures per pass {r['captures']}; host ms "
+            f"a call, mean over the six: pass 1 {mean(r['ms'][0]):.2f}, pass 2 "
+            f"{mean(r['ms'][1]):.2f}, eager-patched {eager_seq:.2f}; reserved MiB {r0:.1f} empty, "
+            f"{r1:.1f} after pass 1, {r2:.1f} after pass 2 (growth {r2 - r1:.1f}); the family's "
+            f"pool after pass 1 {r['segments']:.1f} MiB by the allocator's segments ({r['pool']:.1f} "
+            f"by its live captures' reserved growth), {r['segments'] / max(big, 1e-9):.3f} x the "
+            f"{sizes[-1][0]}x{sizes[-1][1]} pool alone (target {FACADE_POOL_TARGET}), against "
+            f"{sum(alone.values()):.1f} for the sizes alone ({card})")
+    log(f"  eager-patched host ms a call: "
+        + ", ".join(f"{h}x{w} {eager_ms[(h, w)]:.2f}" for h, w in sizes)
+        + f"; replayed against eager-patched, bit for bit: {len(sizes) - len(differ)} of "
+          f"{len(sizes)} sizes equal")
+    reserved()
+    if differ:
+        raise AssertionError(f"run_sift: replayed sizes {differ} differ from the eager-patched ones")
+    if cuda:
+        if (full["dropped"] or full["captures"][1]
+                or full["held"] != [seq[i] for i in (1, 2, 3, 4, 0)]):
+            raise AssertionError(f"at the limit {api.MAX_CAPTURES}: held {full['held']}, dropped "
+                                 f"{full['dropped']}, captures per pass {full['captures']}")
+        if small["held"] != [seq[i] for i in (2, 3, 4, 0)] or small["dropped"] != seq[:2]:
+            raise AssertionError(f"at the limit {FACADE_SMALL_LIMIT}: held {small['held']}, "
+                                 f"dropped {small['dropped']}")
+        r1, r2 = small["reserved"][1:]
+        if r2 - r1 > big:
+            raise AssertionError(f"a second pass grew reserved memory by {r2 - r1:.1f} MiB, more "
+                                 f"than one capture's pool ({big:.1f})")
+        if not full["segments"] < sum(alone.values()):
+            raise AssertionError(f"the family's pool {full['segments']:.1f} MiB is not below the "
+                                 f"sizes' pools alone ({sum(alone.values()):.1f})")
+        if full["segments"] > FACADE_POOL_TARGET * big:
+            raise AssertionError(f"the family's pool {full['segments']:.1f} MiB is above "
+                                 f"{FACADE_POOL_TARGET} x the largest pool alone ({big:.1f})")
+    return dict(alone_mib=alone, full=full, small=small, eager_ms=eager_ms)
+
+
+def facade_describe_counts(dev, sync, card, k):
+    """Phase 4b, descriptor-only mode at several keypoint counts: frame 0's
+    keypoints (480x640 at `k`), their first N for each share of
+    `DESCRIBE_SHARES`, each count called twice (replayed) from an empty
+    facade, then again eager-patched.  Raises unless every call equals the
+    eager `describe_at_keypoints` of its N keypoints alone bit for bit and
+    the captures made are one for each power of two the counts round to
+    (`api.describe_rows`).  Logs the captures, the reserved memory and each
+    count's host ms replayed against eager-patched.  Releases the facade's
+    captures."""
+    import torch
+
+    from siftgpu_tpu_torch.frontend import redetect
+    from siftgpu_tpu_torch.pipeline import api
+
+    cuda = dev.type == "cuda"
+    frame = make_frames(480, 640, 1)[0]
+    api.release_captures()
+    sift = api.SiftTPU(device=dev, max_keypoints=k)
+    sift.run_sift(frame)
+    keys = sift.get_feature_vector()[0]
+    counts = sorted({max(1, int(f * len(keys))) for f in DESCRIBE_SHARES})
+    api.release_captures()
+    if cuda:
+        sync()
+        torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved(dev) / MIB if cuda else 0.0
+    d = api.describe_at_keypoints_jit
+
+    def call(n):
+        sift.set_keypoint_list(keys[:n])
+        t0 = time.perf_counter()
+        sift.run_sift_with_keypoints(frame)
+        out = tuple(t.cpu().numpy() for t in sift._feats)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    rows, differ = [], []
+    for n in counts:
+        before = len(d.captures)
+        got, _ = call(n)
+        made = len(d.captures) - before
+        again, ms = call(n)
+        with uncounted(), eager_facade():
+            call(n)
+            _, eager_ms = call(n)
+            ref = redetect.describe_at_keypoints(
+                torch.from_numpy(frame[None]).to(dev), torch.from_numpy(keys[None, :n]).to(dev),
+                sift._cfg)
+        if not (same_outputs(got, again) and same_outputs(got, tuple(t.cpu().numpy() for t in ref))):
+            differ.append(n)
+        rows.append((n, api.describe_rows(n), made, ms, eager_ms))
+    if cuda:
+        sync()
+        torch.cuda.empty_cache()
+    r1 = torch.cuda.memory_reserved(dev) / MIB if cuda else 0.0
+    pool = api.FACADE.pool_bytes() / MIB
+    log(f"  descriptor-only at {len(counts)} keypoint counts of {len(keys)} (480x640, {card}): "
+        + "; ".join(f"N {n} -> {r} rows, {'captured' if m else 'replayed'}, host ms {ms:.2f} "
+                    f"(eager-patched {e:.2f})" for n, r, m, ms, e in rows)
+        + f"; {len(d.captures)} captures, the facade's pool {pool:.1f} MiB, reserved {r0:.1f} -> "
+          f"{r1:.1f} MiB; bit for bit with the eager describe of the N keypoints alone: "
+          f"{len(counts) - len(differ)} of {len(counts)}")
+    api.release_captures()
+    if differ:
+        raise AssertionError(f"descriptor-only: counts {differ} differ from the eager describe")
+    made, want = sum(r[2] for r in rows), len({api.describe_rows(n) for n in counts})
+    if cuda and made != want:
+        raise AssertionError(f"descriptor-only: {made} captures for {want} powers of two")
+    return dict(counts=rows, reserved_mib=(r0, r1), pool_mib=pool)
 
 
 # ---------------- phase 4b2: the large-set matcher (bench.py:196-228) ----------------
@@ -2742,7 +3080,7 @@ def cli_phase(dev, sync, frames, k=K):
         imio.save_pgm(p("f1.pgm"), frames[1])
         img0, img1 = imio.load_image(p("f0.pgm")), imio.load_image(p("f1.pgm"))
         cli_run(["extract", p("f0.pgm"), "--out", p("f0.sift"), "--npz", p("f0.npz")])
-        with uncounted():
+        with uncounted(), eager_facade():   # the CLI's calls replay; these run eagerly
             ref = api.SiftTPU(device=dev)
             ref.run_sift(img0)
             ref.save_sift(p("ref.sift"))
@@ -2755,13 +3093,15 @@ def cli_phase(dev, sync, frames, k=K):
             pairs = m.get_sift_match()
         with open(p("f0.sift"), "rb") as a, open(p("ref.sift"), "rb") as b:
             if a.read() != b.read():
-                raise AssertionError("cli extract: the .sift file differs from SiftTPU.save_sift's")
+                raise AssertionError("cli extract: the .sift file differs from the eager-patched "
+                                 "SiftTPU.save_sift's")
         store = siftio.load_feature_store(p("f0.npz"))
         dtypes = {key: str(v.dtype) for key, v in store.items() if key != "frame_ids"}
         if (dtypes != STORE_DTYPES or "frame_ids" not in store
                 or store["desc"].shape != store["x"].shape + (128,) or len(store["x"]) != 1):
             raise AssertionError(f"cli extract: the feature store holds {dtypes}")
-        log(f"  extract: {len(k0)} keypoints, .sift byte-identical to the in-process card run's; "
+        log(f"  extract: {len(k0)} keypoints, .sift byte-identical to the eager-patched "
+            f"in-process card run's; "
             f"store keys {sorted(store)}")
 
         lines = cli_run(["match", p("f0.pgm"), p("f1.pgm"), "--viz", p("m.ppm")])
@@ -2796,14 +3136,35 @@ def cli_phase(dev, sync, frames, k=K):
                                                        d_near=5.0, d_far=10.0, seed=2)
         np.save(p("p0.npy"), img0t)
         np.save(p("p1.npy"), img1t)
-        results = []
-        with recording(twoview, "two_view_reconstruct", [], results):
-            cli_run(["twoview", p("p0.npy"), p("p1.npy"), "--focal", f"{f:g}", "-tc", str(k)])
+        results, secs = [], []
+        tv = ["twoview", p("p0.npy"), p("p1.npy"), "--focal", f"{f:g}", "-tc", str(k)]
+
+        def timed_twoview():
+            t0 = time.perf_counter()
+            cli_run(tv)
+            secs.append(time.perf_counter() - t0)
+        with recording(twoview, "two_view_reconstruct_jit", [], results):
+            timed_twoview()   # captures two_view_reconstruct_jit's signature
+            timed_twoview()   # replays it
+        with uncounted(), eager_facade(), recording(twoview, "two_view_reconstruct_jit", [],
+                                                    results):
+            timed_twoview()
         twoview_truth(results[0], meta, f"twoview {h}x{w}, f = {f:g} px")
+        same = [same_tree(r, results[2]) for r in results[:2]]
+        log(f"  twoview through two_view_reconstruct_jit: {secs[0]:.3f} s the first call (its "
+            f"capture), {secs[1]:.3f} s the second (a replay), {secs[2]:.3f} s eager-patched "
+            f"({card_line() if cuda else 'cpu'}); both bit for bit with the eager-patched call: "
+            f"{same}")
+        if not all(same):
+            raise AssertionError(f"cli twoview: replayed results differ from the eager-patched: {same}")
         log(f"  launches of the subcommands: {launched()}")
         require(MAIN_KERNELS, "the CLI subcommands")
 
         # ---- the port's server in a thread, driven by the port's client ----
+        # (a capture in the server's thread needs no CUDA call from another
+        # thread meanwhile, torch.cuda.graph's "global" capture mode: this
+        # thread makes none while a request is served, since the client
+        # waits for each reply)
         q = queue.Queue()
         th = threading.Thread(target=server.serve, args=(0,), daemon=True,
                               kwargs=dict(max_sift=4096, device=dev, _ready_cb=q.put))
@@ -2823,7 +3184,7 @@ def cli_phase(dev, sync, frames, k=K):
             combo.sift.set_keypoint_list(remote[0][0])
             combo.sift.run_sift_with_keypoints(frames[0])
             r_only = combo.sift.get_feature_vector()
-            with uncounted():
+            with uncounted(), eager_facade():   # the server's calls replay; these run eagerly
                 sift = api.SiftTPU(device=dev)
                 local = []
                 for img in frames[:2]:
@@ -2844,7 +3205,7 @@ def cli_phase(dev, sync, frames, k=K):
                       "RUNSIFT_WITH_KEYPOINTS": all(same_bits(a, b) for a, b in zip(r_only, l_only))}
             log(f"  server: {len(remote[0][0])}, {len(remote[1][0])} keypoints, {len(r_pairs)} "
                 f"pairs, {len(r_guided)} guided (H), descriptor-only {len(r_only[0])}; "
-                f"bit-identical to the in-process calls: {checks}")
+                f"bit-identical to the eager-patched in-process calls: {checks}")
             if not all(checks.values()) or shift_inliers(local[0][0], local[1][0], l_pairs) < 0.9:
                 raise AssertionError(f"server: {checks}")
             log(f"  launches of the subcommands and the server: {launched()}")
@@ -4831,9 +5192,14 @@ def run(device: str, h=H, w=W, b=B, k=K):
         par.gated(args, f"facade {label}")
     log(f"  sample_gradients: bit-identical on the {len(sampled)} calls of "
         f"run_sift_with_keypoints (one per octave, {live} of {sampled[0][2].shape[0]} rows live)")
+    clock.mark("phase 4b")
+    log("phase 4b, the image sizes the facade holds")
+    facade_sizes(dev, sync, card_line() if dev.type == "cuda" else "cpu",
+                 1 if dev.type == "cuda" else 4)
+    facade_describe_counts(dev, sync, card_line() if dev.type == "cuda" else "cpu", k)
 
     # ---- 4b2. the large-set matcher, counted ----
-    clock.mark("phase 4b")
+    clock.mark("phase 4b, sizes held")
     large_launches, large_stats = large_match_phase(dev, sync, par)
     clock.mark("phase 4b2")
 
@@ -4857,8 +5223,14 @@ def run(device: str, h=H, w=W, b=B, k=K):
         m_ms = time_ms(lambda: match_descriptors_batch(
             feats.desc[:-1], feats.desc[1:], feats.mask[:-1], feats.mask[1:], mcfg), sync, 20)
         log(f"  extract {b} x {h}x{w}: {ex_ms:.3f} ms; match {b - 1} pairs: {m_ms:.3f} ms")
-        for label, fn in facade_calls.items():
-            log(f"  facade {label}: {time_ms(fn, sync, 5):.3f} ms")
+        for label, fn in facade_calls.items():   # eager-patched, replayed, replayed, eager-patched
+            with eager_facade():
+                e1 = time_ms(fn, sync, 5)
+            r1, r2 = time_ms(fn, sync, 5), time_ms(fn, sync, 5)
+            with eager_facade():
+                e2 = time_ms(fn, sync, 5)
+            log(f"  facade {label}: eager {(e1 + e2) / 2:.3f} ms -> replayed {(r1 + r2) / 2:.3f} ms "
+                f"(runs {e1:.3f}/{e2:.3f}, {r1:.3f}/{r2:.3f})")
         fused = lambda: pyramid.build_pyramid(images, cfg)
         chain = lambda: pyramid.build_pyramid(images, cfg, octave_impl="xla")
         c1, f1, f2, c2 = (time_ms(fn, sync, 10) for fn in (chain, fused, fused, chain))

@@ -15,7 +15,9 @@ argument is None, and every other argument by value: configs
 (`SiftConfig`, `MatchConfig`) and Python ints and floats (`iters`,
 `huber_px`) are static, as jit's `static_argnums` makes them.  An argument
 that cannot be hashed raises, and so does a dict that holds anything but
-tensors.  Like jit's cache, the cache is unbounded.
+tensors.  A `Graphed`'s cache is unbounded, as jit's is, unless its
+family has a `limit` (below): the facade's (`pipeline/api.py`) and -obo's
+(`frontend/extract.py`) do.
 
 A `torch.Generator` argument (the counterpart of jit's PRNG key) is state,
 not part of the signature beyond its device: a new generator object
@@ -62,6 +64,14 @@ members' live captures.  A family takes a new pool on a device when none
 of its members holds a capture there (after `release()`, or after its
 members' `captures` were cleared).
 
+A family made with `limit` holds at most that many captures a device, of
+all its members and signatures together: before a capture on a device
+that holds `limit`, the least recently used one there (by its last call)
+is dropped, under the family's lock.  Its memory stays in the family's
+pool, for the next captures there to reuse, until the device's last
+capture goes; `pool_bytes()` counts live captures only, so the pool's
+size is read from the allocator's segments (`torch.cuda.memory_snapshot`).
+
 A `torch.distributed` process group among the arguments is static and
 keyed by identity: one capture per group object.  Only NCCL's collectives
 can be captured, so on CUDA inputs a group of any other backend raises
@@ -86,6 +96,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import inspect
+import itertools
 import threading
 import time
 from typing import Callable
@@ -103,6 +114,7 @@ WARMUPS = 2
 
 _CONSTANTS: dict = {}
 _WARMUP_STREAMS: dict = {}
+_USES = itertools.count()   # stamps of captures' calls: the order of last use
 
 # calls of each collective that reached torch.distributed (`count_collective`)
 COLLECTIVES: dict = {"all_reduce": 0, "all_gather": 0}
@@ -249,6 +261,7 @@ class Capture:
         self.seconds = seconds        # the warm-up calls and the capture
         self.pool_bytes = pool_bytes  # device memory the capture reserved
         self.last = last              # the capture's own _LastReplay, or its family's
+        self.used = 0                 # the stamp of its last call (`_USES`)
 
     def run(self, leaves):
         stream = torch.cuda.current_stream(self.device)
@@ -275,10 +288,12 @@ class Capture:
 
 class GraphFamily:
     """Entry points that share one graph memory pool per device, one lock
-    and one "last replay done" event (see the module's docstring)."""
+    and one "last replay done" event, and that hold at most `limit`
+    captures a device if it is given (see the module's docstring)."""
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, limit: int | None = None):
         self.name = name
+        self.limit = limit
         self.members: list = []
         self.lock = threading.Lock()
         self.last = _LastReplay()
@@ -295,6 +310,22 @@ class GraphFamily:
         """The growth of reserved memory that the members' live captures
         caused: the family's pools, summed over devices."""
         return sum(c.pool_bytes for g in self.members for c in g.captures.values())
+
+    def held(self, device: torch.device) -> list:
+        """(member, key) of the captures on `device`, least recently used
+        first."""
+        caps = [(c.used, g, k) for g in self.members for k, c in g.captures.items()
+                if c.device == device]
+        return [(g, k) for _, g, k in sorted(caps, key=lambda t: t[0])]
+
+    def make_room(self, device: torch.device) -> None:
+        """Before a capture on `device`, under the family's lock: drop the
+        least recently used captures there until fewer than `limit` are
+        left."""
+        if self.limit is not None:
+            held = self.held(device)
+            for g, k in held[: max(len(held) - self.limit + 1, 0)]:
+                del g.captures[k]
 
     def release(self) -> None:
         """Drop every member's captures; the pools' memory goes back to the
@@ -339,10 +370,19 @@ class Graphed:
             return self.fn(*args, **kwargs)
         dev = next(iter(devices))
         with self._lock, torch.cuda.device(dev):
-            cap = self.captures.get(key)
-            if cap is None:
-                cap = self.captures[key] = self._capture(key, bound, leaves)
-            return cap.run(leaves)
+            return self.lookup(key, dev, lambda: self._capture(key, bound, leaves)).run(leaves)
+
+    def lookup(self, key, device: torch.device, make: Callable):
+        """The capture of `key`, made by `make()` if there is none (its
+        family's least recently used captures on `device` dropped first, to
+        keep its `limit`), marked as used now.  Called under the lock."""
+        cap = self.captures.get(key)
+        if cap is None:
+            if self.family is not None:
+                self.family.make_room(device)
+            cap = self.captures[key] = make()
+        cap.used = next(_USES)
+        return cap
 
     def _capture(self, key, bound, leaves) -> Capture:
         dev = _device(leaves[0])

@@ -203,8 +203,10 @@ def extract_features_obo(images: torch.Tensor, cfg: SiftConfig) -> Features:
 
 # the reference's -obo programs, captured on CUDA inputs into one shared
 # pool (`core/graphs.py`), so that -obo keeps its cap of about one octave's
-# working set
-OBO_FAMILY = GraphFamily("obo")
+# working set.  A call at one size captures 2 + octaves programs (10 at
+# 2160x3840), so the limit holds two such sizes, or more smaller ones.
+OBO_CAPTURES = 24
+OBO_FAMILY = GraphFamily("obo", limit=OBO_CAPTURES)
 _obo_prep_jit = graphed(_obo_prep, "_obo_prep_jit", OBO_FAMILY)
 _obo_octave_jit = graphed(_obo_octave, "_obo_octave_jit", OBO_FAMILY)
 _obo_assemble_jit = graphed(_obo_assemble, "_obo_assemble_jit", OBO_FAMILY)

@@ -163,11 +163,15 @@ def _run_rank(rank_: int, fn: Callable, n: int, backend: str, device: str, store
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, store=dist.FileStore(store, n), rank=rank_, world_size=n,
                             timeout=datetime.timedelta(seconds=timeout))
+    returned = False
     try:
         result = fn(*args, group=dist.group.WORLD, device=dev)
+        returned = True
         with open(os.path.join(out_dir, f"{rank_}.pkl"), "wb") as f:
             pickle.dump(result, f)
     finally:
+        if returned:   # no rank tears down its pairs while a peer may still use them
+            dist.barrier(device_ids=[dev.index] if backend == "nccl" else None)
         dist.destroy_process_group()
 
 

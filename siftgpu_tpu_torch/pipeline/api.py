@@ -23,6 +23,34 @@ The device is explicit: every class and factory takes `device=` (default
 `create_context` / `verify_context` return `SIFTGPU_NOT_SUPPORTED` and
 `run_sift` raise; nothing moves to the CPU on its own.  `device="cpu"` runs
 the plain PyTorch versions of the kernels.
+
+Where the reference calls a compiled program, the facade calls a captured
+entry point (`core/graphs.py`): `run_sift` the facade's
+`extract_features_jit` (with -obo, `extract.extract_features_obo_jit`,
+whose three programs share -obo's family), `create_context` with `-p WxH`
+the same entry point at that size, so its capture exists before the first
+`run_sift` (the reference pre-compiles there), `run_sift_with_keypoints`
+`describe_at_keypoints_jit` (one capture per power of two of keypoint
+counts, below), and the matchers
+`match_descriptors_jit` and `guided_match_descriptors_jit` (`hdist_max`,
+`fdist_max` and the config keyed by value, H and F by whether they are
+None).  On CUDA tensors the first call of a signature captures it (two
+warm-up calls and the capture: the counterpart of the reference's
+compile, which `-v 1`'s time includes), later calls replay; on CPU
+tensors they call the eager functions.  Nothing switches capture off.
+
+The facade's four entry points are one `GraphFamily` (`FACADE`): one pool
+a device for every signature held, since no two of them replay at once.
+The family holds at most `MAX_CAPTURES` captures a device, of every entry
+point, image size, config and match setting together: a call with a new
+signature past that first drops the least recently used capture there,
+under the family's lock (`GraphFamily.make_room`).  -obo's programs are
+bounded the same way in their own family (`extract.OBO_CAPTURES`).
+Descriptor-only mode pads the keypoint list with invalid rows (sigma 0)
+to a power of two (at least `DESCRIBE_MIN_ROWS`) and keeps the first N
+rows: each keypoint is described alone, so those rows are the bits of a
+call on the N keypoints, and a list of any length replays one of a few
+captures where the reference's jit retraces for each N.
 """
 
 from __future__ import annotations
@@ -36,7 +64,9 @@ import torch
 from ..core import image as imio
 from ..core.config import MatchConfig, SiftConfig
 from ..core.flags import parse_flags
-from ..frontend.extract import extract_features, extract_features_obo
+from ..core.graphs import GraphFamily, graphed
+from ..frontend.extract import (OBO_FAMILY, Features, extract_features,
+                                extract_features_obo_jit)
 from ..frontend.match import guided_match_descriptors, match_descriptors
 from ..frontend.redetect import describe_at_keypoints
 from . import profile, siftio
@@ -44,11 +74,42 @@ from . import profile, siftio
 __all__ = [
     "SIFTGPU_FULL_SUPPORTED", "SIFTGPU_NOT_SUPPORTED",
     "SiftTPU", "SiftMatchTPU", "ComboSiftTPU",
-    "create_new_sift_tpu", "create_new_sift_match_tpu",
+    "create_new_sift_tpu", "create_new_sift_match_tpu", "release_captures",
 ]
 
 SIFTGPU_FULL_SUPPORTED = 2   # VerifyContextGL return codes
 SIFTGPU_NOT_SUPPORTED = 0
+
+# captures the facade holds a device.  The pool is shared, so it holds the
+# largest working set once; each further capture adds its static inputs,
+# outputs and the pool's fragmentation (30-40 MiB an image size up to
+# 1088x1920 on an H100, less for describe and the matchers: chip_smoke.py
+# phase 4b logs it), so 15 beside the largest add about 0.6 GiB at most.
+# A signature dropped and called again pays its capture (4x an eager call).
+MAX_CAPTURES = 16
+DESCRIBE_MIN_ROWS = 128   # the smallest keypoint count describe captures
+
+# the reference's compiled programs that the facade calls, captured on
+# CUDA inputs into one pool a device (see the module's docstring)
+FACADE = GraphFamily("facade", limit=MAX_CAPTURES)
+extract_features_jit = graphed(extract_features, "facade extract_features_jit", FACADE)
+describe_at_keypoints_jit = graphed(describe_at_keypoints, "facade describe_at_keypoints_jit",
+                                    FACADE)
+match_descriptors_jit = graphed(match_descriptors, "facade match_descriptors_jit", FACADE)
+guided_match_descriptors_jit = graphed(guided_match_descriptors,
+                                       "facade guided_match_descriptors_jit", FACADE)
+
+
+def release_captures() -> None:
+    """Drop every capture of the facade and of -obo, on every device."""
+    FACADE.release()
+    OBO_FAMILY.release()
+
+
+def describe_rows(n: int) -> int:
+    """The keypoint count describe runs for a list of `n`: a power of two,
+    at least `DESCRIBE_MIN_ROWS`."""
+    return max(DESCRIBE_MIN_ROWS, 1 << max(n - 1, 0).bit_length())
 
 
 def _supported(device: torch.device) -> bool:
@@ -100,14 +161,15 @@ class SiftTPU:
     def _extract(self, arr: np.ndarray, cfg: SiftConfig):
         images = self._images(arr)
         if cfg.process_obo:  # -obo: one octave at a time
-            return extract_features_obo(images, cfg)
-        return extract_features(images, cfg)
+            return extract_features_obo_jit(images, cfg)
+        return extract_features_jit(images, cfg)
 
     # -- context ----------------------------------------------------------
     def create_context(self) -> int:
         """The CreateContextGL analog: check that the device exists; with
-        `-p WxH` also run the path once at that size on the device, which
-        builds the kernels there."""
+        `-p WxH` also run the extraction once at that size, which builds
+        the kernels and, on a card, captures the program that `run_sift`
+        replays at that size (SiftGPU's pyramid pre-allocation)."""
         if not _supported(self.device):
             return SIFTGPU_NOT_SUPPORTED
         pre = self._overrides.get("_prealloc")
@@ -198,8 +260,12 @@ class SiftTPU:
         arr = self._load(image)
         cfg = self.config_for(*arr.shape)
         self._cfg = cfg
-        self._feats = describe_at_keypoints(
-            self._images(arr), torch.from_numpy(self._keypoint_list[None]).to(self.device), cfg)
+        n = len(self._keypoint_list)
+        keys = np.zeros((1, describe_rows(n), *self._keypoint_list.shape[1:]), np.float32)
+        keys[0, :n] = self._keypoint_list   # the padded rows' sigma 0: no octave
+        feats = describe_at_keypoints_jit(self._images(arr), torch.from_numpy(keys).to(self.device),
+                                          cfg)
+        self._feats = Features(*(t[:, :n] for t in feats))
         return True
 
     def save_sift(self, path: str, binary: Optional[bool] = None) -> None:
@@ -257,7 +323,7 @@ class SiftMatchTPU:
         cfg = self.cfg.replace(dist_max=distmax, ratio_max=ratiomax, mutual_best=mutual_best)
         d0, m0 = self._padded(0)
         d1, m1 = self._padded(1)
-        res = match_descriptors(d0, d1, m0, m1, cfg)
+        res = match_descriptors_jit(d0, d1, m0, m1, cfg)
         c = min(int(res.count), max_match)
         return res.pairs[:c].cpu().numpy()
 
@@ -284,7 +350,7 @@ class SiftMatchTPU:
             loc.append(torch.from_numpy(out).to(self.device))
         mat = lambda M: None if M is None else torch.as_tensor(
             np.asarray(M, np.float32), device=self.device)
-        res = guided_match_descriptors(
+        res = guided_match_descriptors_jit(
             d0, d1, loc[0], loc[1], H=mat(H), F=mat(F), mask0=m0, mask1=m1,
             hdist_max=hdistmax, fdist_max=fdistmax, cfg=cfg)
         c = min(int(res.count), max_match)

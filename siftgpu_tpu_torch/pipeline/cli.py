@@ -189,7 +189,7 @@ def cmd_twoview(argv, device):
     cfg = s.config_for(H, W)
     dev = s.device
     intr = torch.tensor([a.focal, a.focal, W / 2.0, H / 2.0], dtype=torch.float32, device=dev)
-    res = twoview.two_view_reconstruct(
+    res = twoview.two_view_reconstruct_jit(   # the reference's CLI calls the jitted program
         torch.from_numpy(np.stack([img0, img1])).to(dev), intr, cfg,
         MatchConfig(max_match=cfg.max_keypoints),
         torch.Generator(device=dev).manual_seed(a.seed),

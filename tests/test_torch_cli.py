@@ -140,8 +140,9 @@ def test_twoview_meets_ground_truth(tmp_path, monkeypatch, capsys):
     for name, img in (("p0.npy", img0), ("p1.npy", img1)):
         np.save(tmp_path / name, img)
     got = []
-    real = twoview.two_view_reconstruct
-    monkeypatch.setattr(twoview, "two_view_reconstruct", lambda *a: got.append(real(*a)) or got[0])
+    real = twoview.two_view_reconstruct_jit   # the CLI's call: the captured entry point
+    monkeypatch.setattr(twoview, "two_view_reconstruct_jit",
+                        lambda *a: got.append(real(*a)) or got[0])
     assert cli.main(["twoview", str(tmp_path / "p0.npy"), str(tmp_path / "p1.npy"), "--focal", "180",
                      "--seed", "7", "-tc", "1024", "--cpu"]) == 0
     res = got[0]
