@@ -10,8 +10,9 @@ line of standard output.  Sections, with bench.py's lines:
 
   640     (:60-133) 4 frames of 480x640 (`random_texture(seed=0, smooth=3)`,
           frame i shifted by (3i, -2i)), `extract_features` at K = 2048, then
-          `match_descriptors_batch` on the 3 consecutive pairs; 40 queued
-          iterations a rep.  `value` = (keypoints + matches) per second of
+          `match_descriptors_batch` on the 3 consecutive pairs, the pairs
+          sliced inside the program (bench.py:77-84's `_match_sliced`); 40
+          queued iterations a rep.  `value` = (keypoints + matches) per second of
           extract + match, `vs_baseline` = value / 60000, as bench.py:116-123.
   1080p   (:136-159) one 1088x1920 frame (seed 7), K = 4096; 32 queued calls.
   4k      (:163-189) one 2160x3840 frame (seed 9), K = 8192; 24 queued calls.
@@ -21,7 +22,8 @@ line of standard output.  Sections, with bench.py's lines:
           kept for parity: the port has no streaming matcher, so it times the
           port's one fused best-2 reduction over the whole 16384 x 16384
           product (kernel 4) and its compaction, the call `match_descriptors`
-          makes at every size.
+          makes at every size.  The timed call and the permutation gate
+          replay one capture (both pairs have one signature).
   stages  (:230-244) `pipeline/profile.py::profile_extraction` on the 640
           section's frames, 40 iterations a stage.  Its rows are the port's:
           one `orient+desc` row where the reference's CPU run shows `orient`
@@ -29,6 +31,14 @@ line of standard output.  Sections, with bench.py's lines:
           reference's rows time compiled stages, each row times replays of
           its stage captured as a CUDA graph for the call (input copies and
           output clones included), not eager calls.
+
+As bench.py times compiled programs (`extract_features_jit`, a jitted
+matcher), the 640, 1080p, 4k and 16k sections time and gate replays of
+captures (`core/graphs.py`) held in this script's own `GraphFamily`
+(`BENCH`: `extract_features_jit`, `match_sliced_jit`,
+`match_descriptors_jit`), one pool, released with the allocator's cache
+emptied at the end of every section.  On the CPU the captured entry
+points call the eager functions.
 
 Protocol: bench.py's, on the card.  A warm-up call (its seconds on stderr),
 then 5 reps of N calls queued back to back, each rep ending in one
@@ -39,15 +49,24 @@ samples lie beyond it).  The peak device memory of each section
 (`max_memory_allocated` after `reset_peak_memory_stats`, less what was
 allocated when the section began), of its first call and of the whole
 section.  The kernel launches of each section's first
-iteration (`ops/_build.py`'s counters).
+iteration (`ops/_build.py`'s counters).  The first call makes the
+captures: `warmup_s` holds its 2 warm-up calls a capture and the capture
+(`graphs.WARMUPS`), `peak_call_bytes` and `peak_bytes` include what the
+warm-ups and the capture allocate (in the capture's pool too), and
+`launches` counts the warm-up calls with the first replay.  Each
+section's record has `captures`: their count, seconds and the reserved
+memory of their pool (`Capture.seconds`, `Capture.pool_bytes`).
 
 Gates, each raising: 640, chip_smoke.py's phase-4 gates (>= 90% known-shift
 inliers at < 1 px per pair, >= 100 keypoints per frame, frame 0 through the
 port on the CPU pairing >= 99% of its keypoints within 0.5 px with the
-card's); 1080p and 4k, the K cap binds, a repeated call is bit-identical,
-each of its calls of kernels 1-3 and of the octave kernel holds against its
-plain version on the card (chip_smoke.py's `Parity`, at the frame's shapes;
-these launches do not count, nor does their memory in the peaks), and the
+card's); 1080p and 4k, the K cap binds, one eager `extract_features` call
+is recorded and each of its calls of kernels 1-3 and of the octave kernel
+holds against its plain version on the card (chip_smoke.py's `Parity`, at
+the frame's shapes; these launches do not count, nor does their memory in
+the peaks; a replay calls no wrapper, so the record comes from the eager
+call), the first replay and a second one equal that eager call bit for
+bit, and the
 frame through the port on the CPU pairs with the card's as frame 0 does;
 16k, before the random sets are timed, >= 99% of
 `chip_smoke.large_sets`' known permutation recovered (the random sets match
@@ -77,6 +96,7 @@ from chip_smoke import (card_line, cpu_pairing_gate, hold_calls, kernel_calls, l
                         main_path_gates, make_frames, on_permutation, spatial_frame,
                         torch_equal_bits)
 from siftgpu_tpu_torch import MatchConfig, SiftConfig, extract_features, match_descriptors_batch
+from siftgpu_tpu_torch.core.graphs import GraphFamily, graphed
 from siftgpu_tpu_torch.frontend.match import match_descriptors
 from siftgpu_tpu_torch.ops import _build
 from siftgpu_tpu_torch.pipeline.profile import profile_extraction
@@ -116,6 +136,19 @@ SMALL = {   # a CPU rehearsal's: one call, nothing timed
 # bench.py's shapes, nothing timed: each section's gates and its first
 # call's launches (chip_smoke.py's phase 5b on the card)
 COUNTS = {name: s._replace(iters=1, reps=0, events=0) for name, s in SIZES.items()}
+
+
+def _match_sliced(desc, mask, mcfg: MatchConfig):
+    """bench.py:77-84: the batch's consecutive pairs, sliced inside the
+    program, matched in one call."""
+    return match_descriptors_batch(desc[:-1], desc[1:], mask[:-1], mask[1:], mcfg)
+
+
+# the programs the sections time and gate (see the module's docstring)
+BENCH = GraphFamily("bench")
+extract_features_jit = graphed(extract_features, "bench extract_features_jit", BENCH)
+match_sliced_jit = graphed(_match_sliced, "bench match_sliced_jit", BENCH)
+match_descriptors_jit = graphed(match_descriptors, "bench match_descriptors_jit", BENCH)
 
 
 def say(msg: str) -> None:
@@ -180,6 +213,9 @@ class Section:
             torch.cuda.reset_peak_memory_stats(self.dev)
 
     def finish(self) -> dict:
+        caps = [c for g in BENCH.members for c in g.captures.values()]
+        self.out["captures"] = {"count": len(caps), "seconds": sum(c.seconds for c in caps),
+                                "pool_bytes": sum(c.pool_bytes for c in caps)}
         if self.timed:
             torch.cuda.synchronize()
             self.out["peak_bytes"] = max(
@@ -212,10 +248,10 @@ def section_640(dev, sizes: Sizes = SIZES["640"], seed: int = SEEDS["640"]) -> d
     images = torch.from_numpy(frames).to(dev)
 
     def extract():
-        return extract_features(images, cfg)
+        return extract_features_jit(images, cfg)
 
     def match(f):
-        return match_descriptors_batch(f.desc[:-1], f.desc[1:], f.mask[:-1], f.mask[1:], mcfg)
+        return match_sliced_jit(f.desc, f.mask, mcfg)
 
     def iteration():
         f = extract()
@@ -252,17 +288,17 @@ def section_640(dev, sizes: Sizes = SIZES["640"], seed: int = SEEDS["640"]) -> d
 
 
 def _frame_section(name: str, dev, sizes: Sizes, seed: int) -> dict:
-    """bench.py:136-189: one frame's extraction.  Gates: the K cap binds, a
-    repeated call is bit-identical, its calls of kernels 1-3 and the octave
-    kernel hold against their plain versions, and the frame through the port
-    on the CPU pairs with the card's."""
+    """bench.py:136-189: one frame's extraction, replayed.  Gates: the K cap
+    binds, an eager call's calls of kernels 1-3 and the octave kernel hold
+    against their plain versions, two replays equal that eager call bit for
+    bit, and the frame through the port on the CPU pairs with the card's."""
     sec = Section(name, dev, sizes.reps > 0)
     cfg = SiftConfig(height=sizes.h, width=sizes.w, max_keypoints=sizes.k)
     frame = spatial_frame(sizes.h, sizes.w, seed)
     image = torch.from_numpy(frame).to(dev)
 
     def extract():
-        return extract_features(image, cfg)
+        return extract_features_jit(image, cfg)
 
     feats = sec.first_call(extract)
     kp = int(feats.count[0])
@@ -270,18 +306,20 @@ def _frame_section(name: str, dev, sizes: Sizes, seed: int) -> dict:
         raise AssertionError(f"{name}: {kp} keypoints, the cap {sizes.k} does not bind")
     calls, restore = kernel_calls(octave=True)
     try:
-        again = extract()
+        eager = extract_features(image, cfg)
     finally:
         restore()
-    if not all(torch_equal_bits(a, b) for a, b in zip(feats, again)):
-        raise AssertionError(f"{name}: a repeated call is not bit-identical")
+    again = extract()
+    for label, f in (("the first replay", feats), ("a second replay", again)):
+        if not all(torch_equal_bits(a, b) for a, b in zip(f, eager)):
+            raise AssertionError(f"{name}: {label} is not bit-identical to an eager call")
     with sec.unmeasured():
         t0 = time.perf_counter()
         sec.out["max_abs_err"] = hold_calls(calls, cfg, sec.sync, f"{name} frame")
         say(f"{name}: {sum(map(len, calls.values()))} calls of kernels 1-3 and 6 against "
             f"their plain versions, max abs err {sec.out['max_abs_err']} "
             f"({time.perf_counter() - t0:.1f} s)")
-        del calls, again
+        del calls, eager, again
     cpu_pairing_gate(frame, feats, cfg, f"the {sizes.h}x{sizes.w} frame")
     sec.out["kp"] = kp
     if sec.timed:
@@ -318,16 +356,16 @@ def section_16k(dev, sizes: Sizes = SIZES["16k"], seed: int = SEEDS["16k"]) -> d
     n = sizes.k
     d0, d1, d1k, perm, _, _ = (torch.from_numpy(a).to(dev) for a in large_sets(n, seed))
     mcfg = MatchConfig(max_sift=n, max_match=n)
-    res = sec.first_call(lambda: match_descriptors(d0, d1, cfg=mcfg))
-    true = permutation_gate(match_descriptors(d0, d1k, cfg=mcfg), perm)
+    res = sec.first_call(lambda: match_descriptors_jit(d0, d1, cfg=mcfg))
+    true = permutation_gate(match_descriptors_jit(d0, d1k, cfg=mcfg), perm)
     sec.out.update(matches=int(res.count), permutation_recovered=true)
     say(f"16k: the known permutation: {true} of {n} recovered; the random sets: "
         f"{int(res.count)} matches")
     if sec.timed:
-        reps = sec.queued(lambda: match_descriptors(d0, d1, cfg=mcfg), sizes)
+        reps = sec.queued(lambda: match_descriptors_jit(d0, d1, cfg=mcfg), sizes)
         sec.out["reps_s"] = {"match": reps}
-        sec.out["events"] = {"match": event_stats(lambda: match_descriptors(d0, d1, cfg=mcfg),
-                                                  sizes.events)}
+        sec.out["events"] = {"match": event_stats(
+            lambda: match_descriptors_jit(d0, d1, cfg=mcfg), sizes.events)}
         say(f"16k x 16k match (kernel 4, no streaming): {min(reps) * 1e3:.2f} ms/pair "
             f"[reps {['%.3f' % (v * 1e3) for v in reps]}]")
     return sec.finish()
@@ -394,10 +432,18 @@ def card() -> dict:
 
 def run(device: str = "cuda", seed: int = 0, only=SECTIONS, sizes=SIZES) -> dict:
     """The sections named in `only`, in bench.py's order, on `device`; each
-    section's seed is its bench.py seed plus `seed`.  Returns bench_line."""
+    section's seed is its bench.py seed plus `seed`, and `BENCH`'s captures
+    are released after it.  Returns bench_line."""
     dev = torch.device(device)
-    results = {name: SECTION_FNS[name](dev, sizes[name], SEEDS[name] + seed)
-               for name in SECTIONS if name in only}
+    results = {}
+    for name in SECTIONS:
+        if name in only:
+            try:
+                results[name] = SECTION_FNS[name](dev, sizes[name], SEEDS[name] + seed)
+            finally:   # no section's pool outlives it
+                BENCH.release()
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
     return bench_line(results, card() if dev.type == "cuda" else None, seed)
 
 

@@ -194,11 +194,22 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      upload after the first window under half the map; run B
      (`resident_map=False, global_ba=True`): run A's keyframes, the same ATE
      bound; run C: run A's state after frame 12 saved by rank 0 and
-     resumed at 13, within 1e-4 of run A; and one NCCL rank repeating run
-     A twice (the first warms the fresh process up), each within 1e-4.
-     The ranks must compile nothing.  Frames/s and host ms per stage per
+     resumed at 13, within 1e-4 of run A.  `run_slam_distributed` replays
+     where the reference runs compiled programs: the gloo ranks' run A
+     extracts through `extract_features_jit` (calls > 0) and, gloo's
+     collectives not being capturable on the card, never calls
+     `_solve_jit` (`resident_ba_class` keeps `ResidentBA`).  One NCCL rank
+     repeats run A three times: first replayed (it makes the captures:
+     count, s, pool MiB), then with the eager functions patched in
+     (`eager_config5`: `extract_features_dp`, `_scatter`, `_solve`,
+     `_gather`), then replayed again; each within 1e-4 of run A, the
+     replayed runs bit for bit with the eager-patched one (trajectory, map
+     points and mask, keyframes, loop edges), and calls of
+     `extract_features_dp_jit` and `_solve_jit` above 0 in each replayed
+     run.  The ranks must compile nothing.  Frames/s and host ms per stage per
      rank, all-reduce and all-gather calls and host ms per windowed BA,
-     the time from the spawn to the group joined;
+     the time from the spawn to the group joined, and the NCCL rank's
+     replayed against eager-patched frames/s;
   4g. config 3 (after 4f): one process's `extract_features` of
      bench.py:139-141's 1088x1920 frame (K = 4096) and :171-172's 2160x3840
      (K = 8192), then `extract_features_spatial` of each in 2 spawned
@@ -233,7 +244,11 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      match, the stage table), nothing timed (`bench_torch.COUNTS`; the
      timings are `python3 bench_torch.py`'s), with bench_torch.py's gates (among
      them, at 1088x1920 and 2160x3840, each call of kernels 1-3 and the
-     octave kernel against its plain version); kernels 1-4 and the octave
+     octave kernel of an eager extraction against its plain version, and
+     two replays bit for bit with that call); the 640, 1080p, 4k and 16k
+     sections run through their captures (`bench_torch.BENCH`: each
+     section's count, s and pool MiB logged, at least one a section), and
+     the family holds none after the phase; kernels 1-4 and the octave
      kernel must have launched; the bench's JSON line is
      logged on a line of its own;
   5c. the captured entry points (after 5b, before 4d): each of
@@ -289,9 +304,10 @@ are the card's name and power limit, one JSON object with a record per
 kernel (`launches`: in phase 4's main path, phase 4b's facade run for
 kernels 4g and 5, the warm-up calls of its captures included, phase 4c's
 two-view call for the small-matrix kernel;
-`twoview_launches`: in phase 4c; `bench_launches`: its launches in one iteration of phase 5b's 640
-and 16k sections; `bench_frame_launches`: in the first calls of its 1080p
-and 4k sections; `slam_launches`: in phase 4d's first run, the warm-up
+`twoview_launches`: in phase 4c; `bench_launches`: its launches in the
+first iteration of phase 5b's 640 and 16k sections, the 2 warm-up calls
+of each capture included; `bench_frame_launches`: in the first calls of its 1080p
+and 4k sections, the same; `slam_launches`: in phase 4d's first run, the warm-up
 calls of its captures included;
 `online_launches`: in phase 4d's online-correction step; `large_launches`:
 in phase 4b2 (kernels 4 and 4g also carry `large_ms`, `large_plain_ms`,
@@ -3686,6 +3702,67 @@ class CollectiveClock:
         self.per_solve, self.uploads = [], []
 
 
+@contextlib.contextmanager
+def eager_config5():
+    """Inside the block `run_slam_distributed` calls the eager functions
+    where it replays captures: `dp.extract_features_dp` for
+    `extract_features_dp_jit`, and `ResidentBAJit`'s programs patched to
+    `_scatter`, `_solve` and `_gather`."""
+    from unittest import mock
+
+    from siftgpu_tpu_torch.parallel import dp
+    from siftgpu_tpu_torch.parallel import resident_ba as rba
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(dp, "extract_features_dp_jit",
+                                              dp.extract_features_dp))
+        for name, fn_name in RESIDENT_PROGRAMS.items():
+            stack.enter_context(mock.patch.object(rba.ResidentBAJit, name,
+                                                  staticmethod(getattr(rba, fn_name))))
+        yield
+
+
+CONFIG5_PROGRAMS = ("extract_features_dp_jit", "extract_features_jit", "_solve_jit")
+
+
+@contextlib.contextmanager
+def config5_calls():
+    """Count, inside the block, the calls that reach config 5's captured
+    entry points (`CONFIG5_PROGRAMS`: the rank's extraction, the captured
+    extraction inside it, `ResidentBAJit`'s solve): yields {name: calls}."""
+    from unittest import mock
+
+    from siftgpu_tpu_torch.parallel import dp
+    from siftgpu_tpu_torch.parallel import resident_ba as rba
+
+    counts = dict.fromkeys(CONFIG5_PROGRAMS, 0)
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    with mock.patch.object(dp, "extract_features_dp_jit",
+                           counted("extract_features_dp_jit", dp.extract_features_dp_jit)), \
+            mock.patch.object(dp, "extract_features_jit",
+                              counted("extract_features_jit", dp.extract_features_jit)), \
+            mock.patch.object(rba.ResidentBAJit, "solver",
+                              staticmethod(counted("_solve_jit", rba.ResidentBAJit.solver))):
+        yield counts
+
+
+def config5_captures() -> dict:
+    """name -> the captures that config 5's programs hold:
+    {signature: Capture}."""
+    from siftgpu_tpu_torch.parallel import dp
+    from siftgpu_tpu_torch.parallel import resident_ba as rba
+
+    return {"extract_features_jit": dict(dp.extract_features_jit.captures),
+            **{g.__name__: dict(g.captures) for g in (rba._scatter_jit, rba._solve_jit,
+                                                      rba._gather_jit)}}
+
+
 def _slam_summary(res, sec, timings, T):
     return dict(trajectory=res.trajectory.copy(), keyframes=list(res.keyframe_indices),
                 map_points=res.map_points.copy(), map_mask=res.map_mask.copy(),
@@ -3751,11 +3828,12 @@ def dist_rank(job, *, group, device):
     for kern in _build.KERNELS.values():
         kern.launches = 0
     clock.reset()
-    res, sec, timings = run()
+    with config5_calls() as calls:
+        res, sec, timings = run()
     out["launches"] = {name: kern.launches for name, kern in _build.KERNELS.items()}
     out["A"] = _slam_summary(res, sec, timings, T)
     out["A"].update(per_solve=list(clock.per_solve), uploads=list(clock.uploads),
-                    collectives=(dict(clock.n), dict(clock.ms)))
+                    collectives=(dict(clock.n), dict(clock.ms)), programs=dict(calls))
     res, sec, timings = run(resident_map=False, global_ba=True)
     out["B"] = _slam_summary(res, sec, timings, T)
 
@@ -3776,11 +3854,16 @@ def dist_rank(job, *, group, device):
     return out
 
 
+NCCL_RUNS = ("captured", "eager", "replayed")
+
+
 def nccl_rank(job, *, group, device):
-    """SLAM run A again, twice, in one rank of an NCCL group: the first run
-    warms the fresh process up (its first extraction, solver and library
-    loads), the second is timed; then the rank programs captured on NCCL
-    (`rank_programs`)."""
+    """SLAM run A again, three times, in one rank of an NCCL group: first
+    replayed (it makes config 5's captures and warms the fresh process
+    up), then with the eager functions patched in (`eager_config5`), then
+    replayed again; each run's calls of config 5's programs
+    (`config5_calls`) and the captures it made.  Then the rank programs
+    captured on NCCL (`rank_programs`)."""
     import torch
     import torch.distributed as dist
 
@@ -3794,15 +3877,24 @@ def nccl_rank(job, *, group, device):
     cfg = SiftConfig(height=h, width=w, max_keypoints=k)
     out = {"t_joined": time.time()}
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    for label in ("first", "second"):
+    for label in NCCL_RUNS:
         timings = {}
-        sync()
-        t0 = time.perf_counter()
-        res = sequence.run_slam_distributed(frames, intr, cfg,
-                                            MatchConfig(max_sift=k, max_match=k),
-                                            slam_config(slam, w), group, device, timings=timings)
-        sync()
+        before = config5_captures()
+        # the eager functions patched over the counters: an eager run counts 0
+        with config5_calls() as calls, \
+                eager_config5() if label == "eager" else contextlib.nullcontext():
+            sync()
+            t0 = time.perf_counter()
+            res = sequence.run_slam_distributed(frames, intr, cfg,
+                                                MatchConfig(max_sift=k, max_match=k),
+                                                slam_config(slam, w), group, device,
+                                                timings=timings)
+            sync()
         out[label] = _slam_summary(res, time.perf_counter() - t0, timings, len(frames))
+        made = [cap for name, caps in config5_captures().items() for key, cap in caps.items()
+                if key not in before[name]]
+        out[label].update(programs=dict(calls), captures=(
+            len(made), sum(c.seconds for c in made), sum(c.pool_bytes for c in made) / MIB))
     out["programs"] = rank_programs(job, group=group, device=device)
     return dict(backend=dist.get_backend(group), **out)
 
@@ -3939,6 +4031,15 @@ def dist_phase(dev, sync, frames4, feats4, k, slam_ref, h=H, w=W):
             log(f"  rank {r['rank']} run {run_}: {x['sec']:.3f} s, {x['fps']:.2f} frames/s "
                 f"(phase 4d {slam_ref['fps']:.2f}); stages (host ms, mean/max): "
                 f"{stage_summary(x['timings'])}")
+        # on the card a gloo group keeps the eager ResidentBA; on the CPU
+        # ResidentBAJit runs the eager functions on any backend
+        progs = r["A"]["programs"]
+        log(f"  rank {r['rank']} run A: calls of config 5's programs {progs} (gloo: the "
+            f"extraction replays; " + ("the solve stays eager)" if cuda else
+                                       "ResidentBAJit, eager on the CPU)"))
+        if not (progs["extract_features_jit"] > 0 and progs["extract_features_dp_jit"] > 0
+                and (progs["_solve_jit"] == 0) == cuda):
+            raise AssertionError(f"rank {r['rank']} run A: calls {progs}")
         ps = np.asarray(r["A"]["per_solve"], np.float64).reshape(-1, 4)
         n_ar, ms_ar = r["A"]["collectives"]
         log(f"  rank {r['rank']} run A: {len(ps)} windowed BAs, all_reduce per BA "
@@ -3986,14 +4087,29 @@ def dist_phase(dev, sync, frames4, feats4, k, slam_ref, h=H, w=W):
                            timeout=DIST_TIMEOUT)
         log(f"  {nc['backend']} rank (world size 1): {time.perf_counter() - t0:.1f} s of wall "
             f"time, {nc['t_joined'] - t0_wall:.2f} s from spawn to the group joined")
-        for label in ("first", "second"):
+        eager = nc["eager"]
+        for label in NCCL_RUNS:
             x = nc[label]
             d_n = float(np.abs(x["trajectory"] - A["trajectory"]).max())
-            log(f"    {label} run: {x['fps']:.2f} frames/s; keyframes {x['keyframes']}, trajectory "
-                f"{d_n:.3g} from run A; stages (host ms, mean/max): {stage_summary(x['timings'])}")
-            if x["keyframes"] != A["keyframes"] or not d_n <= 1e-4:
-                raise AssertionError(f"NCCL {label} run: keyframes {x['keyframes']}, "
-                                     f"trajectory {d_n}")
+            n, cap_s, cap_mib = x["captures"]
+            same = (x["keyframes"] == eager["keyframes"] and x["loop_edges"] == eager["loop_edges"]
+                    and all(same_bits(x[key], eager[key])
+                            for key in ("trajectory", "map_points", "map_mask")))
+            log(f"    {label} run: {x['fps']:.2f} frames/s ({x['sec']:.3f} s); keyframes "
+                f"{x['keyframes']}, trajectory {d_n:.3g} from run A; bit for bit with the "
+                f"eager-patched run: {same}; calls {x['programs']}; captures made {n} "
+                f"({cap_s:.3f} s, {cap_mib:.1f} MiB); stages (host ms, mean/max): "
+                f"{stage_summary(x['timings'])}")
+            replays = label != "eager"
+            if not (x["keyframes"] == A["keyframes"] and d_n <= 1e-4 and same
+                    and (x["programs"]["extract_features_dp_jit"] > 0) == replays
+                    and (x["programs"]["_solve_jit"] > 0) == replays):
+                raise AssertionError(f"NCCL {label} run: keyframes {x['keyframes']}, trajectory "
+                                     f"{d_n}, bit for bit {same}, calls {x['programs']}")
+        if not nc["captured"]["captures"][0] > 0:
+            raise AssertionError(f"NCCL: the first run made no capture ({nc['captured']})")
+        log(f"    replayed against eager-patched: {nc['replayed']['fps']:.2f} against "
+            f"{eager['fps']:.2f} frames/s ({card_line()})")
         check_rank_programs(nc["programs"], f"{nc['backend']} rank", card_line())
     else:
         log("  NCCL rank: not run on the CPU; the rank programs in one gloo rank instead")
@@ -4344,11 +4460,14 @@ def bench_phase(dev):
     """Phase 5b: bench_torch.py's sections in process, launch counters reset
     first; at bench.py's sizes on the card with nothing timed
     (bench_torch.COUNTS: its gates and first calls), at bench_torch.SMALL's
-    on the CPU.  Kernels 1-4 and the octave kernel must have launched.  Logs
-    the bench's JSON line.  Returns each kernel's launches in one iteration
-    of the 640 and 16k sections, in the first calls of the 1080p and 4k
-    sections, and its largest error against its plain version in those two
-    sections' gates."""
+    on the CPU.  Kernels 1-4 and the octave kernel must have launched; on
+    the card the 640, 1080p, 4k and 16k sections must have run through
+    their captures, and `bench_torch.BENCH` must hold none after.  Logs
+    the bench's JSON line and each section's captures.  Returns each
+    kernel's launches in the first iteration of the 640 and 16k sections
+    and in the first calls of the 1080p and 4k sections (the captures'
+    warm-up calls included on the card), and its largest error against its
+    plain version in those two sections' gates."""
     import bench_torch
     from siftgpu_tpu_torch.ops import _build
 
@@ -4365,6 +4484,16 @@ def bench_phase(dev):
             raise AssertionError(f"bench_torch.py did not launch {missing}")
     log(json.dumps(line))
     sec = line["sections"]
+    for name, s in sec.items():
+        c = s["captures"]
+        log(f"  {name}: {c['count']} captures in bench_torch.BENCH, {c['seconds']:.3f} s, "
+            f"pool {c['pool_bytes'] / MIB:.1f} MiB")
+    held = sum(len(g.captures) for g in bench_torch.BENCH.members)
+    log(f"  captures the bench family holds after the phase: {held}")
+    if held or (cuda and not all(sec[s]["captures"]["count"] > 0
+                                 for s in ("640", "1080p", "4k", "16k"))):
+        raise AssertionError(f"phase 5b: the bench family holds {held} captures; sections' "
+                             f"captures {[sec[s]['captures'] for s in sec]}")
     per_sum = lambda names: {name: sum(sec[s]["launches"][name] for s in names)
                              for name in _build.KERNELS}
     errs = [sec[s]["max_abs_err"] for s in ("1080p", "4k")]

@@ -6,9 +6,10 @@ extracts its contiguous block of the batch on its own device.  Extraction
 is batch-independent, so the blocks gathered in rank order
 (`gather_features`) equal one process's `extract_features` of the whole
 batch bit for bit.  `extract_features_dp_jit` is the counterpart of the
-reference's cached `_dp_fn`: the rank's block through the captured
-`extract_features_jit`.  Neither runs a collective; the gather lies
-outside them, as in the reference.
+reference's cached `_dp_fn`, and what config 5's sequence extraction
+calls: the rank's block through the captured `extract_features_jit`.
+Neither runs a collective; the gather lies outside them, as in the
+reference.
 """
 
 from __future__ import annotations

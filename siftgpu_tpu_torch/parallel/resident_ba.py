@@ -25,11 +25,13 @@ the reference's compiled programs: `_scatter` (its `scat`, keyed
 ("solve", Mw, Ns, iters, n_cg)) and `_gather` (its `gath`, keyed
 ("gather", capg)).  `_scatter_jit`, `_solve_jit` and `_gather_jit` are
 their captures (`core/graphs.py`, on NCCL only); `ResidentBAJit` calls
-them, `ResidentBA` the eager functions.  Every rank captures the same
-signatures in the same order, as NCCL needs: the bucketed sizes (cap, Ns,
-capg) come from counts every rank computes alike (the mirror diff, the
-observations of every rank, the window's free points), and whether a
-scatter or gather runs at all from the same counts.  The host work stays
+them, `ResidentBA` the eager functions, and `resident_ba_class` picks the
+class for a device and a backend before the first solve.  Every rank
+captures the same signatures in the same order, as NCCL needs: the
+bucketed sizes (cap, Ns, capg) come from counts every rank computes alike
+(the mirror diff, the observations of every rank, the window's free
+points), and whether a scatter or gather runs at all from the same
+counts.  The host work stays
 outside the programs, as in the reference: the mirror diff, the
 bucketing, the pinned uploads and the one pull.  The reference donates
 the block to its programs; here each returns a new block, a copy of Ps x
@@ -48,7 +50,7 @@ from ..optim import ba
 from ..pipeline.slam import _pull, _upload
 from . import comm
 
-__all__ = ["ResidentBA", "ResidentBAJit"]
+__all__ = ["ResidentBA", "ResidentBAJit", "resident_ba_class"]
 
 
 def _pow2(n: int, floor: int = 256) -> int:
@@ -211,3 +213,15 @@ class ResidentBAJit(ResidentBA):
     the eager functions."""
 
     scatter, solver, gather = _scatter_jit, _solve_jit, _gather_jit
+
+
+def resident_ba_class(device, backend: Optional[str]) -> type:
+    """The resident store's class for a group of `backend` (None: one
+    process) on `device`: `ResidentBAJit`, the reference's compiled
+    programs, but for a group other than NCCL's on the card, whose
+    collectives a CUDA graph cannot hold (`core.graphs.check_backends`
+    would raise): that keeps `ResidentBA`'s eager programs.  On the CPU
+    `ResidentBAJit` runs the eager functions, on any backend."""
+    if torch.device(device).type == "cuda" and backend not in (None, "nccl"):
+        return ResidentBA
+    return ResidentBAJit

@@ -4,14 +4,18 @@ Port of `siftgpu_tpu/parallel/sequence.py` on `torch.distributed`.  A
 T-frame sequence runs as
 
   1. extraction of ALL frames data-parallel over the ranks
-     (`dp.extract_features_dp`, in chunks so device memory stays bounded),
-     each chunk all-gathered so that every rank holds the whole store;
+     (`dp.extract_features_dp_jit`, captured once per chunk shape on the
+     card, in chunks so device memory stays bounded), each chunk
+     all-gathered so that every rank holds the whole store;
   2. the sequential tracking loop (`pipeline.slam.run_slam`) on the
      pre-extracted features, run by EVERY rank on identical inputs, so
      that every rank takes the same host decisions;
   3. every windowed BA as the distributed Schur solve: the map's points
-     resident in blocks on the ranks (`resident_ba.ResidentBA`), or
-     re-partitioned per solve (`make_distributed_ba`);
+     resident in blocks on the ranks (`resident_ba.resident_ba_class`:
+     the captured programs of `ResidentBAJit`, or `ResidentBA`'s eager
+     ones where a group's collectives cannot be captured), or
+     re-partitioned per solve (`make_distributed_ba`, eager: the
+     reference keeps no program of it);
   4. online loop corrections and a final Sim(3) pose-graph refinement over
      all keyframes with the edges sharded over the ranks
      (`dist_pose_graph`), optionally a global BA pass.
@@ -30,6 +34,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import MatchConfig, SiftConfig
 from ..optim import ba
@@ -78,7 +83,11 @@ def extract_sequence_dp(frames, cfg: SiftConfig, group=None, device="cuda",
     """Extract a [T, H, W] sequence data-parallel over the ranks.
 
     `chunk` (a multiple of the world size; default 4 frames per rank)
-    bounds the pyramid working set per call; the tail chunk is padded
+    bounds the pyramid working set per call.  Each rank's block goes
+    through `dp.extract_features_dp_jit`, which holds no collective: one
+    capture per block shape on the card (a short tail chunk adds at most
+    one), the eager extraction on the CPU; the gather, the pulls and the
+    host store stay outside it.  The tail chunk is padded
     with copies of the last frame to a multiple of the world size, and the
     padding dropped after extraction.  `desc_hbm_budget`: descriptor-store
     bytes kept on the device; a longer sequence's store goes to host
@@ -103,7 +112,7 @@ def extract_sequence_dp(frames, cfg: SiftConfig, group=None, device="cuda",
         pad = (-len(blk)) % n
         if pad:
             blk = np.concatenate([blk, np.repeat(blk[-1:], pad, axis=0)])
-        feats = dp.gather_features(dp.extract_features_dp(blk, cfg, group, dev), group)
+        feats = dp.gather_features(dp.extract_features_dp_jit(blk, cfg, group, dev), group)
         keep = len(blk) - pad
         if host_mode:
             d_h, x_h, y_h, m_h = _pull(feats.desc[:keep], feats.x[:keep], feats.y[:keep],
@@ -271,12 +280,14 @@ def run_slam_distributed(frames, intr, cfg: SiftConfig, mcfg: MatchConfig, scfg,
     resume, and extraction is deterministic, so a resumed run replays the
     uninterrupted one.  `global_ba=True` ends with one distributed BA over
     all keyframes after the pose graph.  `resident_map=True`: the windowed
-    BA keeps the map's points resident on the ranks (`ResidentBA`); False
-    re-partitions the window per solve.  `timings`: as in `run_slam`,
+    BA keeps the map's points resident on the ranks, through the captured
+    programs (`ResidentBAJit`) unless `resident_ba_class` rules them out
+    (a gloo group on the card keeps `ResidentBA`); False re-partitions
+    the window per solve.  `timings`: as in `run_slam`,
     plus "extract" (the whole sequence's)."""
     from ..pipeline import slam
     from ..pipeline.metrics import or_null
-    from .resident_ba import ResidentBA
+    from .resident_ba import resident_ba_class
 
     m = or_null(metrics)
     group = comm.resolve(group)
@@ -288,7 +299,11 @@ def run_slam_distributed(frames, intr, cfg: SiftConfig, mcfg: MatchConfig, scfg,
     seq = extract_sequence_dp(frames, cfg, group, dev, chunk=chunk, metrics=metrics)
     if timings is not None:
         timings.setdefault("extract", []).append((time.perf_counter() - t0) * 1e3)
-    ba_runner = ResidentBA(group, dev) if resident_map else make_distributed_ba(group, dev)
+    if resident_map:
+        backend = None if group is None else dist.get_backend(group)
+        ba_runner = resident_ba_class(dev, backend)(group, dev)
+    else:
+        ba_runner = make_distributed_ba(group, dev)
     result = slam.run_slam(
         frames, intr, cfg, mcfg, scfg, features=seq, ba_fn=ba_runner, metrics=metrics,
         checkpoint_path=checkpoint_path, resume=resume,

@@ -114,7 +114,7 @@ def section_640():
         return run
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(bt, "extract_features", keep(bt.extract_features, "feats"))
+        mp.setattr(bt, "extract_features_jit", keep(bt.extract_features_jit, "feats"))
         mp.setattr(bt, "match_descriptors_batch", keep(bt.match_descriptors_batch, "res"))
         out = bt.section_640(CPU, SMALL_640, 0)
     return out, seen["feats"], seen["res"]

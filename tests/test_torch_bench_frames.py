@@ -1,7 +1,8 @@
 """bench_torch.py's 1080p and 4k sections on the CPU, at small sizes: their
 keypoint caps bind, kernels 1-3 and the octave kernel are held against
 their plain versions, and every gate raises on bad output (a cap that does
-not bind, a kernel off its plain version, a call that does not repeat)."""
+not bind, a kernel off its plain version, a call that does not repeat: a
+replay of the captured extraction off the eager call's bits)."""
 
 import pytest
 import torch
@@ -57,8 +58,10 @@ def test_frame_section_raises_on_a_call_that_does_not_repeat(monkeypatch):
     def drifting(images, cfg):
         f = extract_features(images, cfg)
         calls.append(1)
-        return f._replace(x=f.x + 1e-3 * len(calls))
+        return f._replace(x=f.x + 1e-3 * (len(calls) - 1))
 
-    monkeypatch.setattr(bt, "extract_features", drifting)
-    with pytest.raises(AssertionError, match="not bit-identical"):
+    # the timed entry point's first call has the eager call's bits, its
+    # second drifts
+    monkeypatch.setattr(bt, "extract_features_jit", drifting)
+    with pytest.raises(AssertionError, match="second replay is not bit-identical"):
         bt.section_4k(CPU, bt.SMALL["4k"], 9)
