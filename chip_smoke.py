@@ -99,6 +99,17 @@ tests/test_loop_closure.py's two fixtures.  It checks them:
      4g bit-identical to their plain versions (best, second, argbest,
      column best, and the compacted pairs) at that size; ms per pair of
      each public call and the kernels' device ms against their bounds;
+     then the float case (`large_float_case`, no kernel launched): the
+     known-correspondence set as float through the streaming matcher (16
+     blocks of 1024 columns) and its dense route (`block_size=-1`), plain
+     and guided H+F: pairs and count identical between the routes, >= 99%
+     recovered, guided pairs inside their gates, no host sync in a
+     streamed call, its peak memory below 1 GiB beyond the inputs and
+     below half the dense route's; ms, peak memory and device ops a call
+     of each route, and ms a replayed `match_descriptors_jit` call of
+     each plain route; `SiftMatchTPU` with float descriptors captured and
+     replayed on both routes, its pairs equal to the direct call's, the
+     streamed capture's pool below half the dense one's;
   4c. two-view path: launch counters reset to 0, `two_view_reconstruct`;
      kernels 1-4, the octave kernel and the small-matrix kernel (once per
      eigh or SVD call) must have launched; the ground-truth
@@ -2180,6 +2191,32 @@ def on_permutation(res, inv) -> int:
     return int((inv[pr[:, 0]] == pr[:, 1]).sum()) if c else 0
 
 
+def inside_gates(label, res, loc0, loc1k) -> str:
+    """Raises unless every pair of a guided call on the known-permutation
+    set lies within LARGE_GATE's hdist_max of H x0 (H the shift) and, for
+    a label with "F", within fdist_max of its epilines; returns the worst
+    distances as text."""
+    import torch
+
+    hdist, fdist = LARGE_GATE
+    c = int(res.count)
+    pr = res.pairs[:c].long()
+    a, b = loc0.double()[pr[:, 0]], loc1k[pr[:, 1]].double()
+    dh = torch.hypot(*(b - a - torch.tensor(LARGE_SHIFT, dtype=torch.float64,
+                                            device=a.device)).T)
+    worst = float(dh.max()) if c else 0.0
+    msg = f"; reprojection distance max {worst:.4f} px"
+    if worst > hdist * (1 + 1e-5):
+        raise AssertionError(f"{label}: a pair {worst} px from H x0")
+    if "F" in label:
+        de = epipolar_distance(cross(*LARGE_SHIFT), a.cpu().numpy(), b.cpu().numpy())
+        worst = float(de.max()) if c else 0.0
+        msg += f", epipolar distance max {worst:.4f} px"
+        if worst > fdist * (1 + 1e-5) + 1e-4:
+            raise AssertionError(f"{label}: a pair {worst} px off its epiline")
+    return msg
+
+
 def large_match_phase(dev, sync, par):
     """Phase 4b2: kernel 4 and 4g at 16384 x 16384 through the public
     matchers, launch counters reset before the counted calls: plain matching
@@ -2188,8 +2225,10 @@ def large_match_phase(dev, sync, par):
     permutation recovered by plain matching, every guided pair inside its
     gate, the kernels' selections and compacted pairs bit-identical to
     their plain versions'.  Times each route (CUDA events, ms per pair) and
-    the kernels alone (device ms) against their bounds.  Returns (launches,
-    {kernel name: {ms, device_ms, plain_ms, bound_ms}} at this size)."""
+    the kernels alone (device ms) against their bounds.  Then the float
+    case (`large_float_case`), which launches no hand kernel.  Returns
+    (launches, {kernel name: {ms, device_ms, plain_ms, bound_ms}} at this
+    size)."""
     import torch
 
     from siftgpu_tpu_torch import MatchConfig, bounds
@@ -2226,28 +2265,14 @@ def large_match_phase(dev, sync, par):
         raise AssertionError(f"large-set matcher: launches {launches}")
 
     inv = torch.argsort(perm).to(torch.int64)        # row i's true column
-    p0 = loc0.double()
     for label, res in out.items():
         c = int(res.count)
-        pr = res.pairs[:c].long()
         true = on_permutation(res, inv)
         msg = f"  {label}: {c} pairs, {true} on the permutation ({true / n:.5f} of it)"
         if label == "plain, known permutation" and true < 0.99 * n:
             raise AssertionError(f"large-set matcher: {true} of {n} recovered")
         if label.startswith("guided"):
-            a, b = p0[pr[:, 0]], loc1k[pr[:, 1]].double()
-            dh = torch.hypot(*(b - a - torch.tensor(LARGE_SHIFT, dtype=torch.float64,
-                                                    device=dev)).T)
-            worst = float(dh.max()) if c else 0.0
-            msg += f"; reprojection distance max {worst:.4f} px"
-            if worst > hdist * (1 + 1e-5):
-                raise AssertionError(f"{label}: a pair {worst} px from H x0")
-            if "F" in label:
-                de = epipolar_distance(cross(*LARGE_SHIFT), a.cpu().numpy(), b.cpu().numpy())
-                worst = float(de.max()) if c else 0.0
-                msg += f", epipolar distance max {worst:.4f} px"
-                if worst > fdist * (1 + 1e-5) + 1e-4:
-                    raise AssertionError(f"{label}: a pair {worst} px off its epiline")
+            msg += inside_gates(label, res, loc0, loc1k)
             if true < 0.99 * n:
                 raise AssertionError(f"{label}: {true} of {n} recovered")
         log(msg)
@@ -2298,7 +2323,150 @@ def large_match_phase(dev, sync, par):
     del gated, kcalls, out
     if cuda:
         torch.cuda.empty_cache()
+    large_float_case(dev, sync, d0, d1k, inv, loc0, loc1k, Hm, Fm,
+                     cfg if cuda else cfg.replace(stream_threshold=n // 4, stream_block=n // 16))
     return launches, stats
+
+
+def large_float_case(dev, sync, d0, d1k, inv, loc0, loc1k, Hm, Fm, cfg) -> None:
+    """Phase 4b2's float case: the known-permutation set as float (d / 512,
+    as the tests make float sets) through the streaming matcher, `cfg`'s
+    auto route (16 blocks of 1024 columns at 16384 columns), against the
+    dense route (`block_size=-1`), plain and guided H+F.  Raises unless the
+    streamed pairs and count equal the dense route's (a differing pair is
+    printed with both similarities), >= 99% of the permutation is
+    recovered, every guided pair lies inside its gates, and, on the card, a
+    streamed call makes no host sync and peaks below 1 GiB beyond the
+    inputs and below half the dense route's peak.  Logs per route ms a
+    call (CUDA events), peak memory beyond the inputs and device ops a call
+    (torch.profiler), and for the plain routes ms a call of
+    `match_descriptors_jit` replayed (CUDA events) and its capture's pool.
+    Then `SiftMatchTPU` with the float sets through `get_sift_match`,
+    captured into an empty facade and replayed, its pairs equal to the
+    direct call's, its capture's pool against the same with
+    `block_size=-1`: on the card the streamed pool must be below half the
+    dense one.  Logs the case's seconds."""
+    import torch
+
+    from siftgpu_tpu_torch.frontend import match as fmatch
+    from siftgpu_tpu_torch.pipeline import api
+
+    t_case = time.perf_counter()
+    cuda = dev.type == "cuda"
+    n = d0.shape[0]
+    f0, f1 = d0.float() / 512, d1k.float() / 512
+    block = fmatch._effective_block(cfg, n)
+    if not block:
+        raise AssertionError(f"float case: {cfg} does not stream {n} columns")
+    dense = cfg.replace(block_size=-1)
+    hdist, fdist = LARGE_GATE
+    guided = dict(H=Hm, F=Fm, hdist_max=hdist, fdist_max=fdist)
+    routes = {
+        "streamed": lambda: fmatch.match_descriptors(f0, f1, cfg=cfg),
+        "dense": lambda: fmatch.match_descriptors(f0, f1, cfg=dense),
+        "guided H+F streamed": lambda: fmatch.guided_match_descriptors(
+            f0, f1, loc0, loc1k, cfg=cfg, **guided),
+        "guided H+F dense": lambda: fmatch.guided_match_descriptors(
+            f0, f1, loc0, loc1k, cfg=dense, **guided),
+    }
+    log(f"  float case: {n} x {n} float (d / 512), {-(-n // block)} blocks of {block} "
+        "columns against block_size=-1")
+    out, peaks = {}, {}
+    for label, fn in routes.items():
+        if cuda:
+            sync()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        out[label] = fn()
+        sync()
+        if not cuda:
+            continue
+        peaks[label] = (torch.cuda.max_memory_allocated(dev) - base) / MIB
+        ms = time_ms(fn, sync, LARGE_ITERS)
+        ops, dev_ms = device_work(fn, sync)
+        syncs = sync_sites(fn)
+        msg = (f"  float {label}: {ms:.3f} ms a call (CUDA events), peak {peaks[label]:.1f} MiB "
+               f"beyond the inputs, {ops} device ops a call ({dev_ms:.3f} ms of device time), "
+               f"{len(syncs)} host syncs")
+        if not label.startswith("guided"):   # the same call captured and replayed
+            c = cfg if label == "streamed" else dense
+            jit = fmatch.match_descriptors_jit
+            before = set(jit.captures)
+            jit_ms = time_ms(lambda: jit(f0, f1, None, None, c), sync, LARGE_ITERS)
+            new = [k for k in jit.captures if k not in before]
+            msg += (f"; match_descriptors_jit replayed {jit_ms:.3f} ms a call (CUDA events), "
+                    f"capture pool {sum(jit.captures[k].pool_bytes for k in new) / MIB:.1f} MiB")
+            for k in new:
+                del jit.captures[k]
+        log(f"{msg}; {card_line()}")
+        if "streamed" in label and syncs:
+            raise AssertionError(f"float {label}: host syncs in a streamed call at {syncs}")
+    for kind in ("", "guided H+F ") if cuda else ():
+        st, dn = peaks[kind + "streamed"], peaks[kind + "dense"]
+        if not (st < 1024 and st < 0.5 * dn):
+            raise AssertionError(f"float {kind}streamed: peak {st:.1f} MiB beyond the inputs, "
+                                 f"not below 1 GiB and half the dense route's {dn:.1f} MiB")
+    for kind in ("", "guided H+F "):
+        a, b = out[kind + "streamed"], out[kind + "dense"]
+        if int(a.count) != int(b.count) or not torch.equal(a.pairs, b.pairs):
+            rows = (a.pairs != b.pairs).any(dim=1).nonzero()[:, 0][:10].tolist()
+            sim = lambda i, j: float(torch.dot(fmatch._normalize(f0[i]).double(),
+                                               fmatch._normalize(f1[j]).double())
+                                     ) if min(i, j) >= 0 else None
+            for r in rows:
+                (i, j), (k, m) = a.pairs[r].tolist(), b.pairs[r].tolist()
+                log(f"  float {kind}streamed slot {r}: ({i}, {j}) sim {sim(i, j)}; dense "
+                    f"({k}, {m}) sim {sim(k, m)}")
+            raise AssertionError(f"float {kind}streamed: {int(a.count)} pairs differ from the "
+                                 f"dense route's {int(b.count)}")
+        c = int(a.count)
+        true = on_permutation(a, inv)
+        msg = (f"  float {kind}streamed: {c} pairs, identical to the dense route's (dist within "
+               f"{float((a.dist - b.dist).abs().max()):.3g}), {true} on the permutation "
+               f"({true / n:.5f} of it)")
+        if kind:
+            msg += inside_gates("guided H+F", a, loc0, loc1k)
+        log(msg)
+        if true < 0.99 * n:
+            raise AssertionError(f"float {kind}streamed: {true} of {n} recovered")
+
+    # ---- the facade: SiftMatchGPU's float overload, captured and replayed ----
+    knobs = dict(stream_threshold=cfg.stream_threshold, stream_block=cfg.stream_block)
+    want = out["streamed"].pairs[: int(out["streamed"].count)].cpu().numpy()
+    del out, routes
+    pools = {}
+    for label, kw in (("streamed", {}), ("dense", dict(block_size=-1))):
+        api.release_captures()
+        if cuda:
+            sync()
+            torch.cuda.empty_cache()
+        matcher = api.SiftMatchTPU(max_sift=n, device=dev, **knobs, **kw)
+        matcher.set_descriptors(0, f0.cpu().numpy())
+        matcher.set_descriptors(1, f1.cpu().numpy())
+        before = set(api.match_descriptors_jit.captures)
+        first = matcher.get_sift_match(max_match=n)
+        caps = [c for key, c in api.match_descriptors_jit.captures.items() if key not in before]
+        t0 = time.perf_counter()
+        again = matcher.get_sift_match(max_match=n)
+        ms = (time.perf_counter() - t0) * 1e3
+        if not (np.array_equal(first, want) and np.array_equal(again, want)):
+            raise AssertionError(f"facade float {label}: its pairs differ from the direct "
+                                 "streamed call's")
+        if cuda and len(caps) != 1:
+            raise AssertionError(f"facade float {label}: {len(caps)} captures")
+        pool = pools[label] = caps[0].pool_bytes / MIB if caps else 0.0
+        log(f"  facade float {label} (SiftMatchTPU(max_sift={n}){', block_size=-1' if kw else ''}"
+            f"): {len(want)} pairs, equal to the direct call's; "
+            f"{'replayed' if cuda else 'second call'} {ms:.3f} host ms, "
+            f"capture pool {pool:.1f} MiB")
+    if cuda and not pools["streamed"] < 0.5 * pools["dense"]:
+        raise AssertionError(f"facade float: the streamed capture's pool, {pools['streamed']:.1f} "
+                             f"MiB, not below half the dense one's, {pools['dense']:.1f} MiB")
+    api.release_captures()
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"  float case: {time.perf_counter() - t_case:.1f} s")
 
 
 def rot_angle(Ra, Rb) -> float:

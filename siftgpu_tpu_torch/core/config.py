@@ -197,11 +197,13 @@ class MatchConfig:
     """Static matcher parameters (`GetSiftMatch(max_match, distmax=0.7,
     ratiomax=0.8, mutual_best=1)` parity; angular distances in radians).
 
-    The streaming knobs (`block_size`, `stream_threshold`, `stream_block`)
-    and `use_pallas` are carried for parity: the port's matcher is the one
-    fused best-2 reduction (`ops/match_kernel.py`) at every size, and its
-    uint8 pairs equal the reference's streaming route's
-    (tests/test_torch_match_stream.py)."""
+    The streaming knobs act as in the reference (`frontend/match.py::
+    _effective_block`) on every set but uint8 on the card, which takes the
+    fused best-2 kernel (`ops/match_kernel.py`) at every size:
+    `block_size` > 0 streams d1 in blocks of that many columns when N1
+    exceeds it, 0 streams `stream_block` columns when N1 exceeds
+    `stream_threshold`, < 0 is always dense.  `use_pallas` is carried for
+    parity: the route follows the device."""
 
     max_sift: int = 4096           # SetMaxSift analog: descriptor capacity
     max_match: int = 4096          # output match-buffer capacity

@@ -1,27 +1,37 @@
 """Descriptor matching: brute-force best-2 + ratio test + mutual best, plain
 and guided.
 
-Port of `siftgpu_tpu/frontend/match.py`.  uint8 sets go through the best-2
-reduction of `ops/match_kernel.py` (the CUDA kernel on the card — the
-[N0, N1] similarity never reaches device memory — and the dense plain
-version on the CPU); guided matching through its H/F-gated variant, whose
-rank-1 gate operands `gate_operands` forms.  Float descriptors take the
-reference's dense route: L2-normalised rows, one f32 matmul (TF32 off) and
-the plain selection, on both devices (the reference computes this path
-outside any Pallas kernel).  The reference's blockwise `_match_streaming`,
-which its CPU route takes above `stream_threshold` columns or with
-`block_size` set, is not ported: for uint8 sets the one reduction selects
-the same pairs, bit for bit, by the auto switch and by explicit blocks,
-with ties on both sides of block edges, plain and through every gate
-(tests/test_torch_match_stream.py).  `_finalize` applies the angular distmax /
-ratiomax thresholds and the mutual-best check and compacts the surviving
-rows, in row order, into a fixed `[max_match, 2]` buffer padded with -1.
+Port of `siftgpu_tpu/frontend/match.py`, with two routes, chosen by the
+descriptors' dtype and device only:
+
+  - uint8 sets on the card take the best-2 reduction of
+    `ops/match_kernel.py` at every size (the CUDA kernel: the [N0, N1]
+    similarity never reaches device memory), guided matching its H/F-gated
+    variant, whose rank-1 gate operands `gate_operands` forms (the
+    reference's `_fused_select` / `_fused_guided`);
+  - every other set (float descriptors on both devices, uint8 on the CPU)
+    takes `_match_streaming`, in blocks of the width `_effective_block`
+    gives (above `stream_threshold` columns, or above an explicit
+    `block_size`), else in one block of all N1 columns, the dense
+    selection.  It takes d1 in column blocks, forms each block's
+    similarity (uint8: exact dots with reciprocal norms computed once;
+    float: L2-normalised rows, one full-f32 matmul), applies the masks and
+    the block's gates, and merges the block's best-2 into running (best,
+    second, argbest) rows, ties to the earlier column.  Each column's
+    argbest row completes within its block, which holds every row.  It
+    holds O(N0 x block) memory, not O(N0 x N1), and its loop is a static
+    Python loop with no host read, so the captured entry points (`*_jit`)
+    capture it at every block width.
+
+`_finalize` applies the angular distmax / ratiomax thresholds and the
+mutual-best check and compacts the surviving rows, in row order, into a
+fixed `[max_match, 2]` buffer padded with -1.
 
 Gate operands are formed elementwise in f32 in a fixed order, never with a
 small matmul: a [N, 3] x [3, 3] product on the card would run in TF32
 unless disabled, and its ~1e-3 relative error moves a 3 px gate.  The same
-code serves the kernel and the plain version, so the CPU and the card get
-the same operands.
+code serves the kernel, the plain version and every block of the stream,
+so the CPU and the card get the same operands.
 """
 
 from __future__ import annotations
@@ -33,7 +43,8 @@ import torch
 
 from ..core.config import MatchConfig
 from ..core.graphs import graphed
-from ..ops.match_kernel import best2_dense, gate_matrix, match_best2, match_best2_gated, recip_norms
+from ..ops.match_kernel import (_u8_sim, best2_dense, gate_matrix, match_best2,
+                                match_best2_gated, recip_norms)
 from ..core.precision import full_f32
 
 __all__ = [
@@ -89,18 +100,6 @@ def _normalize(d: torch.Tensor) -> torch.Tensor:
     return f / torch.clamp(n, min=1e-12)
 
 
-def _float_sim(d0, d1) -> torch.Tensor:
-    """Dense cosine similarity of L2-normalised rows, full f32."""
-    with full_f32():
-        return torch.matmul(_normalize(d0), _normalize(d1).transpose(-1, -2))
-
-
-def _select(sim, mask0, mask1, cfg: MatchConfig, keep=None) -> MatchResult:
-    """Fixed-capacity selection from a full similarity matrix [N0, N1] (the
-    reference's `_select`; its `_best2_sim` is `best2_dense`)."""
-    return _finalize(*best2_dense(sim, mask0, mask1, keep), cfg)
-
-
 def _masks(d0, d1, mask0, mask1):
     lead0, lead1 = d0.shape[:-1], d1.shape[:-1]
     if mask0 is None:
@@ -110,6 +109,80 @@ def _masks(d0, d1, mask0, mask1):
     return mask0.contiguous(), mask1.contiguous()
 
 
+def _effective_block(cfg: MatchConfig, n1: int) -> int:
+    """The reference's streaming policy, from N1 and the config alone.
+
+    block_size > 0: stream with that block when N1 exceeds it;
+    block_size == 0: stream `stream_block` columns when N1 > `stream_threshold`;
+    block_size < 0: always dense.
+    Returns the block, or 0 for the dense route."""
+    if cfg.block_size > 0:
+        return cfg.block_size if n1 > cfg.block_size else 0
+    if cfg.block_size == 0 and n1 > cfg.stream_threshold:
+        return min(cfg.stream_block, n1)
+    return 0
+
+
+def _match_streaming(d0, d1, mask0, mask1, block: int, gate=None):
+    """Blockwise streaming best-2 (the reference's `_match_streaming`) of P
+    pairs: d0 [P, N0, 128], d1 [P, N1, 128] (uint8 or float), masks
+    [P, N0] / [P, N1], d1 taken `block` columns at a time, N1 padded to a
+    multiple of the block with mask1 false.  `gate`, if given, is
+    (gate, rows [P, R, N0], cols [P, C, N1], h2, fthr) as `gate_matrix`
+    takes them; each block's gate is formed from its slice of `cols`.
+    Returns what `best2_dense` returns on the whole [N0, N1]."""
+    P, n0, n1 = d0.shape[0], d0.shape[1], d1.shape[1]
+    pad = (-n1) % block
+    pad_cols = lambda x: torch.nn.functional.pad(x, (0, pad)) if pad else x
+    pad_rows = lambda x: torch.nn.functional.pad(x, (0, 0, 0, pad)) if pad else x
+    if _is_u8(d0, d1):
+        rn0, rn1, d1 = recip_norms(d0), pad_cols(recip_norms(d1)), pad_rows(d1)
+
+        def sim(lo):
+            return _u8_sim(d0, d1[:, lo:lo + block], rn0, rn1[:, lo:lo + block])
+    else:
+        f0, f1 = _normalize(d0), pad_rows(_normalize(d1))
+
+        def sim(lo):
+            with full_f32():
+                return torch.matmul(f0, f1[:, lo:lo + block].transpose(-1, -2))
+    mask1 = pad_cols(mask1)
+    if gate is not None:
+        g, rows, cols, h2, fthr = gate
+        cols = pad_cols(cols)
+    dev = d0.device
+    best = torch.full((P, n0), float("-inf"), dtype=torch.float32, device=dev)
+    second = torch.full((P, n0), float("-inf"), dtype=torch.float32, device=dev)
+    best_j = torch.zeros((P, n0), dtype=torch.int32, device=dev)
+    col_best_i = []
+    for lo in range(0, n1 + pad, block):
+        keep = None if gate is None else gate_matrix(g, rows, cols[..., lo:lo + block], h2, fthr)
+        b, s, j, ci = best2_dense(sim(lo), mask0, mask1[:, lo:lo + block], keep)
+        # disjoint candidates: the strict > keeps the earlier column on ties
+        second = torch.maximum(torch.maximum(second, s), torch.minimum(best, b))
+        best_j = torch.where(b > best, j + lo, best_j)
+        best = torch.maximum(best, b)
+        col_best_i.append(ci)
+    return best, second, best_j, torch.cat(col_best_i, dim=-1)[:, :n1]
+
+
+def _selection(d0, d1, mask0, mask1, cfg: MatchConfig, gate=None):
+    """The best-2 selection of P pairs (d0 [P, N0, 128], d1 [P, N1, 128],
+    masks [P, N0] / [P, N1], `gate` as `_match_streaming` takes it) by the
+    route the dtype and the device choose (the module's docstring)."""
+    if not (_is_u8(d0, d1) and d0.device.type == "cuda"):
+        n1 = d1.shape[1]
+        return _match_streaming(d0, d1, mask0, mask1, _effective_block(cfg, n1) or n1, gate)
+    d0, d1 = d0.contiguous(), d1.contiguous()
+    # `recip_norms` is the counterpart of the reference's `_u8_parts`:
+    # computed once here, so the kernel and the plain version share them
+    args = (d0, d1, recip_norms(d0), recip_norms(d1), mask0, mask1)
+    if gate is None:
+        return match_best2(*args)
+    g, rows, cols, h2, fthr = gate
+    return match_best2_gated(*args, g, rows.contiguous(), cols.contiguous(), h2, fthr)
+
+
 def match_descriptors_batch(
     d0: torch.Tensor, d1: torch.Tensor,
     mask0: Optional[torch.Tensor] = None, mask1: Optional[torch.Tensor] = None,
@@ -117,15 +190,9 @@ def match_descriptors_batch(
 ) -> MatchResult:
     """Pairwise matching of P pairs: d0 [P, N0, 128], d1 [P, N1, 128] (uint8
     or float) -> MatchResult with a leading pair axis.  One reduction launch
-    for all P pairs."""
+    for all P pairs on the kernel's route."""
     mask0, mask1 = _masks(d0, d1, mask0, mask1)
-    if _is_u8(d0, d1):
-        d0, d1 = d0.contiguous(), d1.contiguous()
-        # `recip_norms` is the counterpart of the reference's `_u8_parts`:
-        # computed once here, so the kernel and the plain version share them
-        sel = match_best2(d0, d1, recip_norms(d0), recip_norms(d1), mask0, mask1)
-    else:
-        sel = best2_dense(_float_sim(d0, d1), mask0, mask1)
+    sel = _selection(d0, d1, mask0, mask1, cfg)
     res = [_finalize(*(s[p] for s in sel), cfg) for p in range(d0.shape[0])]
     return MatchResult(*(torch.stack(f) for f in zip(*res)))
 
@@ -186,7 +253,8 @@ def _f_parts_cols(loc1, F):
 
 
 def gate_operands(loc0, loc1, H=None, F=None):
-    """The gated kernel's operands (`_fused_guided`'s layout): gate in
+    """The gated selection's operands (the reference's `_fused_guided`
+    layout): gate in
     {"h", "f", "hf"}, rows [R, N0] and cols [C, N1] f32 (see
     `ops.match_kernel.gate_matrix`).  loc0 [N0, 2], loc1 [N1, 2], H, F
     [3, 3] f32 on one device."""
@@ -224,19 +292,6 @@ def _epipolar_gate(loc0, loc1, F, fdist_max):
     return gate_matrix(gate, rows[None], cols[None], *gate_thresholds(0.0, fdist_max))[0]
 
 
-def _fused_guided(d0, d1, loc0, loc1, H, F, mask0, mask1,
-                  hdist_max, fdist_max, cfg: MatchConfig) -> MatchResult:
-    """uint8 guided matching through the gated reduction: the gates are
-    folded into the validity of each pair before the best-2 selection."""
-    gate, rows, cols = gate_operands(loc0, loc1, H, F)
-    d0, d1 = d0.contiguous(), d1.contiguous()
-    sel = match_best2_gated(
-        d0[None], d1[None], recip_norms(d0)[None], recip_norms(d1)[None],
-        mask0[None], mask1[None], gate, rows[None].contiguous(), cols[None].contiguous(),
-        *gate_thresholds(hdist_max, fdist_max))
-    return _finalize(*(s[0] for s in sel), cfg)
-
-
 def guided_match_descriptors(
     d0, d1, loc0, loc1, H=None, F=None,
     mask0: Optional[torch.Tensor] = None, mask1: Optional[torch.Tensor] = None,
@@ -252,13 +307,10 @@ def guided_match_descriptors(
     if H is None and F is None:
         return match_descriptors(d0, d1, mask0, mask1, cfg)
     mask0, mask1 = _masks(d0, d1, mask0, mask1)
-    if _is_u8(d0, d1):
-        return _fused_guided(d0, d1, loc0, loc1, H, F, mask0, mask1,
-                             hdist_max, fdist_max, cfg)
     gate, rows, cols = gate_operands(loc0, loc1, H, F)
-    keep = gate_matrix(gate, rows[None], cols[None],
-                       *gate_thresholds(hdist_max, fdist_max))[0]
-    return _select(_float_sim(d0, d1), mask0, mask1, cfg, keep)
+    sel = _selection(d0[None], d1[None], mask0[None], mask1[None], cfg,
+                     (gate, rows[None], cols[None], *gate_thresholds(hdist_max, fdist_max)))
+    return _finalize(*(x[0] for x in sel), cfg)
 
 
 # the reference's jitted `guided_match_descriptors` (hdist_max, fdist_max and

@@ -17,7 +17,11 @@ block; replicated inputs stay replicated.
     all-gather of every rank's boundary rows (config 3, `spatial`);
   - `spawn(fn, n, backend, device, *args)`: n processes started with the
     `spawn` method, met through a file store, each group with a timeout;
-    returns each rank's picklable result, raises if a rank fails.
+    returns each rank's picklable result, raises if a rank fails, with
+    each rank's exit, the traceback of each rank whose function raised,
+    and, for each rank that died of a signal (a C++ abort in a
+    collective's thread, say), the Python stacks of all its threads, which
+    each rank's `faulthandler` writes to a file of its own.
 
 The backend is the caller's choice: "nccl" raises when two ranks would
 share a device, and nothing falls back to another backend.
@@ -26,14 +30,18 @@ share a device, and nothing falls back to another backend.
 from __future__ import annotations
 
 import datetime
+import faulthandler
 import os
 import pickle
+import signal
 import tempfile
 import time
+import traceback
 from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
+from torch.multiprocessing.spawn import ProcessException
 
 from ..core.graphs import count_collective
 from ..optim.ba import all_reduce_sum
@@ -155,7 +163,12 @@ def exchange_halo(x: torch.Tensor, h: int, group=None, stats: Optional[list] = N
 def _run_rank(rank_: int, fn: Callable, n: int, backend: str, device: str, store: str,
               timeout: float, out_dir: str, threads: Optional[int], args: tuple) -> None:
     """One spawned rank: join the group, run fn(*args, group=, device=),
-    write its result, leave the group."""
+    write its result, leave the group.  Into `out_dir`: `<rank>.error`,
+    fn's traceback if it raised, written before the rank leaves the group
+    (which fails its peers' collectives); `<rank>.fault`, every thread's
+    stack if a fatal signal ends the process, from its start to its exit
+    (faulthandler keeps the file open)."""
+    faulthandler.enable(file=open(_rank_file(out_dir, rank_, "fault"), "w"), all_threads=True)
     if threads is not None:
         torch.set_num_threads(threads)
     dev = device_of(rank_, device)
@@ -167,12 +180,53 @@ def _run_rank(rank_: int, fn: Callable, n: int, backend: str, device: str, store
     try:
         result = fn(*args, group=dist.group.WORLD, device=dev)
         returned = True
-        with open(os.path.join(out_dir, f"{rank_}.pkl"), "wb") as f:
+        with open(_rank_file(out_dir, rank_, "pkl"), "wb") as f:
             pickle.dump(result, f)
+    except Exception:
+        with open(_rank_file(out_dir, rank_, "error"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
     finally:
         if returned:   # no rank tears down its pairs while a peer may still use them
             dist.barrier(device_ids=[dev.index] if backend == "nccl" else None)
         dist.destroy_process_group()
+
+
+def _rank_file(out_dir: str, rank_: int, kind: str) -> str:
+    return os.path.join(out_dir, f"{rank_}.{kind}")
+
+
+def _failure(procs, out_dir: str, tail: int = 6000) -> RuntimeError:
+    """What `spawn` raises for a failed run of the processes `procs`, all
+    joined: every rank's exit (0, an exit code, or a signal), then the
+    faulthandler stacks of each rank that a fatal signal ended and the
+    traceback of each rank whose fn raised.  A rank that died of a signal
+    comes first: when one rank dies its peers fail next, in the collective
+    it left, so their tracebacks follow from its death; then the ranks that
+    raised, earliest error file first."""
+    def read(r, kind):
+        try:
+            with open(_rank_file(out_dir, r, kind)) as f:
+                return f.read()[-tail:]
+        except FileNotFoundError:
+            return ""
+
+    def exit_of(p):
+        if p.exitcode is not None and p.exitcode < 0:
+            names = {s.value: s.name for s in signal.Signals}
+            return f"died of signal {names.get(-p.exitcode, -p.exitcode)}"
+        return "returned" if p.exitcode == 0 else f"exit code {p.exitcode}"
+
+    n = len(procs)
+    dead = [r for r in range(n) if read(r, "fault")]
+    raised = sorted((r for r in range(n) if os.path.exists(_rank_file(out_dir, r, "error"))),
+                    key=lambda r: os.path.getmtime(_rank_file(out_dir, r, "error")))
+    exits = [f"rank {r} {exit_of(p)}" for r, p in enumerate(procs)]
+    root = (dead + raised + [r for r, p in enumerate(procs) if p.exitcode])[:1]
+    lines = [exits[root[0]] if root else "a rank failed", "; ".join(exits)]
+    lines += [f"--- rank {r}: faulthandler stacks ---\n{read(r, 'fault')}" for r in dead]
+    lines += [f"--- rank {r}: traceback ---\n{read(r, 'error')}" for r in raised]
+    return RuntimeError("\n".join(lines))
 
 
 def spawn(fn: Callable, n: int, backend: str, device, *args, timeout: float = 300.0,
@@ -185,7 +239,10 @@ def spawn(fn: Callable, n: int, backend: str, device, *args, timeout: float = 30
     `threads` sets each rank's torch threads.  `fn` must be importable by
     the children (a module-level function), and its result picklable.
     Returns the results in rank order; raises if any rank raised or died,
-    after the others have been stopped."""
+    after the others have been stopped: a `RuntimeError` that names each
+    rank's exit and holds the faulthandler stacks of every rank that died
+    of a signal and the traceback of every rank whose fn raised, a dead
+    rank first (`_failure`)."""
     import torch.multiprocessing as mp
 
     if backend == "nccl" and n > torch.cuda.device_count():
@@ -193,11 +250,16 @@ def spawn(fn: Callable, n: int, backend: str, device, *args, timeout: float = 30
                          "a device, which NCCL refuses; use as many ranks as devices")
     with tempfile.TemporaryDirectory() as tmp:
         store = os.path.join(tmp, "store")
-        mp.start_processes(_run_rank, args=(fn, n, backend, str(device), store, timeout, tmp,
-                                            threads, args),
-                           nprocs=n, join=True, start_method="spawn")
+        procs = mp.start_processes(_run_rank, args=(fn, n, backend, str(device), store, timeout,
+                                                    tmp, threads, args),
+                                   nprocs=n, join=False, start_method="spawn")
+        try:
+            while not procs.join():
+                pass
+        except ProcessException as e:
+            raise _failure(procs.processes, tmp) from e
         out = []
         for r in range(n):
-            with open(os.path.join(tmp, f"{r}.pkl"), "rb") as f:
+            with open(_rank_file(tmp, r, "pkl"), "rb") as f:
                 out.append(pickle.load(f))
     return out

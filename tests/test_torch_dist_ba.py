@@ -87,6 +87,18 @@ def test_spawn_raises_when_a_rank_fails():
         comm.spawn(worker.fail_on_rank, 2, "gloo", "cpu", 1, timeout=60, threads=1)
 
 
+@pytest.mark.parametrize("collective", [False, True], ids=["alone", "in_a_collective"])
+def test_spawn_reports_a_dead_ranks_stack(collective):
+    """A rank that dies of a signal raises nothing in Python: `spawn`
+    reports its signal and the stacks its faulthandler wrote, down to the
+    line that aborted, ahead of whatever its peers raised in the
+    collective it left."""
+    with pytest.raises(RuntimeError, match="^rank 1 died of signal SIGABRT") as err:
+        comm.spawn(worker.abort_on_rank, 2, "gloo", "cpu", 1, collective, timeout=60, threads=1)
+    assert "Fatal Python error: Aborted" in str(err.value)
+    assert "in abort_on_rank" in str(err.value)
+
+
 def test_spawn_refuses_nccl_ranks_sharing_a_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match="share"):

@@ -7,6 +7,9 @@ tiny SLAM scene is tests/test_multiprocess.py:24-47's (T = 8, 96x128, K =
 256), built with the port's fixtures.
 """
 
+import os
+import time
+
 import numpy as np
 import torch
 
@@ -46,6 +49,18 @@ def fail_on_rank(bad, *, group, device):
     """Rank `bad` raises; the others return."""
     if comm.rank(group) == bad:
         raise RuntimeError(f"rank {bad} failed")
+
+
+def abort_on_rank(bad, collective, *, group, device):
+    """Rank `bad` aborts its process (SIGABRT, as a C++ `std::terminate`
+    does); the others return, or, with `collective`, wait for it in a
+    sum-all-reduce that it never joins."""
+    if comm.rank(group) == bad:
+        if collective:
+            time.sleep(1.0)        # its peers are in the all-reduce by then
+        os.abort()
+    if collective:
+        comm.all_reduce_sum(torch.ones(1, device=device), group)
 
 
 def run_ba_distributed(sprob, iters, n_cg, *, group, device):
